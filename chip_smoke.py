@@ -4,26 +4,43 @@
 Run from the repository root:
 
     python3 chip_smoke.py                 # bench workload, 6144 ONT reads
-    python3 chip_smoke.py --reads 100000  # larger run
+    python3 chip_smoke.py --reads 100000  # larger slices
 
-Phases (each prints its own lines; any failure raises and exits non-zero):
+Phases (each prints its own lines and wall time; any failure raises and
+exits non-zero):
   1. device: requires torch.cuda.is_available(); prints nvidia-smi's name
      and power limit of the card;
   2. build: compiles the CUDA kernels from lr2rmats_tpu_torch/csrc with
      nvcc for sm_90a and prints the build time and ptxas report;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     main-path shapes (chain at A=128/B=1664 and A=64/B=320 on anchor rows
-     of the workload's first batch plus random rows; shift DP at band 8,
-     M=192, G=256/512 and band 4, M=64, G=128), exact, with CUDA-event
-     times of both;
-  4. slice: TorchBatchAligner(device="cuda").align_seqset_packed on the
+     main-path shapes, exact, with CUDA-event times of both: chain at
+     A=128/B=1664 and A=64/B=320 on anchor rows of the workload's first
+     batch plus random rows; shift DP at band 8, M=192, G=256/512 and band
+     4, M=64, G=128, and both junction flanks at the G of the first batch;
+     combine on the junction gaps of the first batch plus random gaps (G >=
+     2048), all six outputs; hamming at 131072 candidates of 150 bases,
+     windows past the buffer end included; and the two torch-op ports (seed
+     lookup, junction counts) against their host versions, host-clock
+     times;
+  4. slice 1: TorchBatchAligner(device="cuda").align_seqset_packed on the
      bench.py workload (20 Mb genome, ONT profile, seed 123, batch 1536)
      then emit_sam; the same seqset through the reference package's host
      backend (BatchAligner(backend="host"), which imports no jax); the SAM
-     bytes and accuracy must be identical and both kernels must have been
-     launched by the slice.
-Then one JSON line with the kernels, and the last line
-{"ok": true, "device": {...}}.
+     bytes and accuracy must be identical;
+  5. slice 2: the same with the device junction DP and the device seed
+     lookup (junction_backend="device", seed_lookup=True); SAM identical
+     to the host backend;
+  6. pipeline: scripts/simulate.py at its defaults (12 Mb genome, 200
+     genes, 20000 long reads, 50000 short pairs, seed 7), then
+     `python -m lr2rmats_tpu_torch run` (its main, in this process) with
+     LR2RMATS_DEVICE_JUNCTIONS=1, LR2RMATS_DEVICE_SEED=1 and
+     LR2RMATS_DEVICE_SJCOUNT=1, and the reference's
+     run_pipeline(use_tpu=False); every file under output/, the SAM, the
+     BED and the STARSJ table must be byte-identical.
+Launch counts are set to 0 before each of phases 4-6 and read after; every
+kernel must have been launched by one of them.  Then one JSON line with the
+kernels, and the last line {"ok": true, "device": {...}}.  Work files go
+under build/chip_smoke/.
 
 Neither this script nor the port imports jax: it is blocked below.
 """
@@ -35,6 +52,7 @@ sys.modules["jax"] = None  # any jax import in the slice fails loudly
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import time
 
@@ -45,6 +63,11 @@ GENOME_MB = 20.0
 CHAIN_SHAPES = ((128, 1664), (64, 320))          # (A, chunk rows)
 SHIFT_SHAPES = ((8, 192, 256, "int8"), (8, 192, 512, "int8"),
                 (4, 64, 128, "int32"))           # (band, M, G, dtype)
+COMBINE_MIN_G = 2048
+HAMMING_C, HAMMING_L = 131072, 150
+SWITCHES = ("LR2RMATS_DEVICE_JUNCTIONS", "LR2RMATS_DEVICE_SEED",
+            "LR2RMATS_DEVICE_SJCOUNT")
+PATH_KERNELS = ("chain_dp_backtrack", "shift_dp", "combine", "hamming")
 
 
 def say(tag, msg):
@@ -188,6 +211,311 @@ def check_shift_dp(genome_codes, dev):
     return worst, times
 
 
+def random_gaps(rng, codes, n):
+    """Junction gaps (q, left_ref, right_ref, el, er) on the genome: the
+    tests/test_splice_device.py recipe (m < 64, 15% query mutations), a
+    quarter with spans too short for an intron, anchor-prior centres 0-6."""
+    gaps = []
+    for _ in range(n):
+        m = int(rng.integers(0, 64))
+        lr = int(rng.integers(100, len(codes) - 20_000))
+        short = rng.random() < 0.25
+        span = int(rng.integers(m + 4, m + 20) if short else
+                   rng.integers(m + 40, m + 5000))
+        q = codes[lr: lr + m].copy()
+        mut = rng.random(m) < 0.15
+        q[mut] = (q[mut] + rng.integers(1, 4, int(mut.sum()))) % 4
+        gaps.append((q, lr, lr + span, int(rng.integers(0, 7)),
+                     int(rng.integers(0, 7))))
+    return gaps
+
+
+def check_junction(aligner, first_batch, dev):
+    """Both junction flank shift DPs and the combine kernel == their plain
+    versions on the junction gaps of the workload's first batch (the native
+    collect pass of the device junction backend) plus random gaps."""
+    import torch
+    from lr2rmats_tpu.native import get_lib
+    from lr2rmats_tpu_torch.ops.junction import (B_DEF, combine,
+                                                 combine_reference,
+                                                 prepare_junction_batch)
+    from lr2rmats_tpu_torch.ops.splice import shift_dp, shift_dp_reference
+    codes = aligner.inner.genome.codes
+    rows = aligner._batch_anchors(first_batch)
+    chained = aligner._chain_rows(rows)
+    per_read = aligner._collect_candidates(rows, chained)
+    packed = aligner._flatten_candidates(first_batch, per_read,
+                                         sorted(per_read))
+    _, gaps, _ = aligner._collect_junction_gaps(get_lib(), packed,
+                                                len(packed[1]))
+    n_real = len(gaps)
+    rng = np.random.default_rng(SEED + 2)
+    gaps += random_gaps(rng, codes, max(COMBINE_MIN_G - n_real, 256))
+    b = prepare_junction_batch(codes, gaps, B_DEF)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+         for k, v in b.items() if k != "B"}
+    G = len(gaps)
+    flanks = (("q", "lwin"), ("qr", "rwin"))
+    S = [shift_dp(t[q], t[w], t["m"], B_DEF) for q, w in flanks]
+    S_ref = [shift_dp_reference(t[q], t[w], t["m"], B_DEF)
+             for q, w in flanks]
+    args = (*S, t["m"], t["span"], t["dok"], t["aok"], t["el"], t["er"],
+            B_DEF, aligner.p.min_intron_len)
+    got = combine(*args)
+    want = combine_reference(*args)
+    torch.cuda.synchronize()
+    shift_same = all(torch.equal(a, r) for a, r in zip(S, S_ref))
+    same = [torch.equal(a, r) for a, r in zip(got, want)]
+    fin = want[5]
+    err = float((got[0] - want[0])[fin].abs().max()) if bool(fin.any()) \
+        else 0.0
+    shift_ms = cuda_ms(lambda: [shift_dp(t[q], t[w], t["m"], B_DEF)
+                                for q, w in flanks], 20) / 2
+    shift_plain = cuda_ms(lambda: [shift_dp_reference(t[q], t[w], t["m"],
+                                                      B_DEF)
+                                   for q, w in flanks], 1) / 2
+    ms = cuda_ms(lambda: combine(*args), 20)
+    plain_ms = cuda_ms(lambda: combine_reference(*args), 2)
+    say("kernels", f"shift_dp band=4 M=64 G={G} int32 (both junction "
+        f"flanks): exact={shift_same} kernel {shift_ms:.4f} ms, plain "
+        f"{shift_plain:.2f} ms per flank")
+    say("kernels", f"combine G={G}: {n_real} gaps of the first batch + "
+        f"{G - n_real} random, found {int(fin.sum())}; exact(score, j, cl, "
+        f"cr, vote, found)={same} max_abs_err={err} kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.2f} ms")
+    if not shift_same:
+        raise AssertionError("junction shift_dp disagrees with the plain "
+                             "version")
+    if not all(same):
+        bad = torch.zeros(G, dtype=torch.bool, device=dev)
+        for a, r in zip(got, want):
+            bad |= a != r
+        g = int(torch.nonzero(bad)[0])
+        raise AssertionError(
+            f"combine kernel disagrees with the plain version at gap {g}: "
+            f"{[x[g].item() for x in got]} vs {[x[g].item() for x in want]}")
+    return err, (ms, plain_ms)
+
+
+def check_hamming(codes, dev):
+    """hamming kernel == plain version: HAMMING_C candidates of
+    HAMMING_L-base reads against the genome, 1% past the buffer end."""
+    import torch
+    from lr2rmats_tpu_torch.junctions.sjcount_device import (
+        hamming, hamming_reference)
+    rng = np.random.default_rng(SEED + 3)
+    n = len(codes)
+    S = 4096
+    starts = rng.integers(0, n - HAMMING_L, S)
+    comb = codes[starts[:, None] + np.arange(HAMMING_L)].copy()
+    mut = rng.random(comb.shape) < 0.01
+    comb[mut] = (comb[mut] + 1) % 4
+    off = np.arange(S + 1, dtype=np.int64) * HAMMING_L
+    rid = rng.integers(0, S, HAMMING_C).astype(np.int32)
+    pos = starts[rid] + rng.integers(-2, 3, HAMMING_C)
+    far = rng.random(HAMMING_C) < 0.5
+    pos[far] = rng.integers(0, n, int(far.sum()))
+    past = rng.random(HAMMING_C) < 0.01
+    pos[past] = n - rng.integers(1, HAMMING_L, int(past.sum()))
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+            (codes, comb.reshape(-1), off, rid, pos.astype(np.int64))]
+    got = hamming(*args)
+    want = hamming_reference(*args)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    err = float((got - want).abs().max())
+    ms = cuda_ms(lambda: hamming(*args), 20)
+    plain_ms = cuda_ms(lambda: hamming_reference(*args), 2)
+    say("kernels", f"hamming C={HAMMING_C} L={HAMMING_L} over a {n}-base "
+        f"buffer ({int(past.sum())} windows past its end): exact={same} "
+        f"max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
+    if not same:
+        raise AssertionError("hamming kernel disagrees with the plain "
+                             "version")
+    return err, (ms, plain_ms)
+
+
+def wall_ms(fn, reps):
+    """Mean host-clock milliseconds of fn() over reps calls, each ending in
+    a synchronise (for functions whose copies are part of the call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def check_torch_ops(aligner, first_batch, dev):
+    """The two device functions ported as torch ops, against the
+    reference's host versions: the seed lookup on the first batch's
+    minimizer hashes, and the junction counts over 2^20 updates."""
+    from lr2rmats_tpu_torch.index.seed_device import TorchSeedLookup
+    from lr2rmats_tpu_torch.junctions.sjcount_device import TorchCounts
+    idx = aligner.index
+    h = aligner._batch_minimizers(first_batch)[0]
+    look = TorchSeedLookup(idx, dev)
+    seed_same = all(np.array_equal(a, b) for a, b in
+                    zip(look.lookup(h), idx.lookup(h)))
+    seed_t = (wall_ms(lambda: look.lookup(h), 10),
+              wall_ms(lambda: idx.lookup(h), 10))
+    rng = np.random.default_rng(SEED + 4)
+    n, M = 50_000, 1 << 20
+    cc = rng.integers(0, n + 1, M)                   # n is the sentinel
+    u = rng.random(M) < 0.7
+    over = rng.integers(0, 100, M).astype(np.int32)
+    counts = TorchCounts(n, dev)
+    counts.add(cc, u, over)
+    keep = cc < n
+
+    def host_counts():
+        uniq, multi, mx = (np.zeros(n, np.int32) for _ in range(3))
+        np.add.at(uniq, cc[keep & u], 1)
+        np.add.at(multi, cc[keep & ~u], 1)
+        np.maximum.at(mx, cc[keep], over[keep])
+        return uniq, multi, mx
+
+    counts_same = all(np.array_equal(a, b) for a, b in
+                      zip(counts.fetch(), host_counts()))
+    counts_t = (wall_ms(lambda: (counts.add(cc, u, over), counts.fetch()),
+                        5),
+                wall_ms(host_counts, 2))
+    say("kernels", f"torch ops: seed lookup of {len(h)} hashes exact="
+        f"{seed_same} card {seed_t[0]:.2f} ms, host {seed_t[1]:.2f} ms; "
+        f"junction counts of {M} updates exact={counts_same} card "
+        f"{counts_t[0]:.2f} ms, host numpy {counts_t[1]:.2f} ms (host "
+        "clock, copies included)")
+    if not (seed_same and counts_same):
+        raise AssertionError("a torch-op port disagrees with the host "
+                             "version")
+
+
+def align_slice(tag, aligner, seqset, sam_ref, dev):
+    """align_seqset_packed + emit_sam with launch counts and kernel times;
+    the SAM must equal the host backend's."""
+    import torch
+    from lr2rmats_tpu_torch.ops import _build
+    aligner.stats = aligner.fresh_stats()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    with _build.timing() as kernel_ms:
+        t0 = time.perf_counter()
+        rb = aligner.align_seqset_packed(seqset)
+        sam = rb.emit_sam(aligner.refs)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    if sam_ref is not None and sam != sam_ref:
+        raise AssertionError(f"{tag}: SAM bytes differ from the host "
+                             "backend: " + first_diff(sam, sam_ref))
+    return rb, sam, wall, launches, kernel_ms, dict(aligner.stats), \
+        torch.cuda.max_memory_allocated(dev) / 2**20
+
+
+def pipeline_outputs(out):
+    files = sorted(os.listdir(os.path.join(out, "output")))
+    names = [os.path.join("output", f) for f in files] + [
+        os.path.join("alignment", f"samp1.{n}") for n in
+        ("minimap.sam", "minimap.bed", "STARSJ.out.tab")]
+    out_bytes = {}
+    for name in names:
+        with open(os.path.join(out, name), "rb") as f:
+            out_bytes[name] = f.read()
+    return out_bytes
+
+
+def stage_walls(out):
+    """Wall seconds per stage from the pipeline's benchmark/ files."""
+    walls = {}
+    bdir = os.path.join(out, "benchmark")
+    for f in sorted(os.listdir(bdir)):
+        with open(os.path.join(bdir, f)) as fh:
+            walls[f.replace(".benchmark.txt", "")] = float(
+                fh.read().splitlines()[1].split()[0])
+    return walls
+
+
+def run_pipeline_phase(here, dev, card):
+    """scripts/simulate.py at its defaults; the port's CLI with the three
+    device switches; the reference's host pipeline; byte comparison."""
+    import torch
+    from lr2rmats_tpu.index.minimizer import MinimizerIndex
+    from lr2rmats_tpu.io.fasta import Genome
+    from lr2rmats_tpu.pipeline.config import PipelineConfig, SampleReads
+    from lr2rmats_tpu_torch._reference import parallel_module
+    from lr2rmats_tpu_torch.ops import _build
+    from lr2rmats_tpu_torch.pipeline.cli import main as port_main
+    work = os.path.join(here, "build", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    data = os.path.join(work, "data")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.join(here, "scripts",
+                                                 "simulate.py"),
+                    "--out", data], check=True, capture_output=True)
+    sim_s = time.perf_counter() - t0
+    files = {k: os.path.join(data, v) for k, v in (
+        ("genome", "genome.fa"), ("gtf", "anno.gtf"), ("long", "long.fa"),
+        ("s1", "short_1.fa"), ("s2", "short_2.fa"))}
+    # the index both runs load (build_or_load's cache next to the FASTA)
+    t0 = time.perf_counter()
+    MinimizerIndex.build_or_load(Genome.load(files["genome"]),
+                                 files["genome"] + ".tmmi.npz")
+    index_s = time.perf_counter() - t0
+    say("pipeline", f"scripts/simulate.py defaults in {sim_s:.1f} s; index "
+        f"built in {index_s:.1f} s")
+
+    port_out = os.path.join(work, "port")
+    argv = ["run", "--genome", files["genome"], "--gtf", files["gtf"],
+            "--long-read", files["long"], "--short-read-1", files["s1"],
+            "--short-read-2", files["s2"], "--out-dir", port_out]
+    os.environ.update({v: "1" for v in SWITCHES})
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        rc = port_main(argv)
+        torch.cuda.synchronize(dev)
+        port_s = time.perf_counter() - t0
+    finally:
+        for v in SWITCHES:
+            os.environ.pop(v, None)
+    launches = dict(_build.LAUNCHES)
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+    if rc != 0:
+        raise AssertionError(f"python -m lr2rmats_tpu_torch run exited {rc}")
+
+    ref_out = os.path.join(work, "ref")
+    parallel_module("distributed")   # the reference pipeline imports it
+    from lr2rmats_tpu.pipeline.stages import run_pipeline as ref_pipeline
+    cfg = PipelineConfig(genome_fasta=files["genome"], gtf=files["gtf"])
+    cfg.samples["samp1"] = SampleReads(files["long"], files["s1"],
+                                       files["s2"])
+    cfg.out_dir = ref_out
+    t0 = time.perf_counter()
+    ref_pipeline(cfg, use_tpu=False)
+    ref_s = time.perf_counter() - t0
+
+    got, want = pipeline_outputs(port_out), pipeline_outputs(ref_out)
+    diff = [k for k in sorted(set(got) | set(want))
+            if got.get(k) != want.get(k)]
+    if diff or len(want) != 11:
+        raise AssertionError(f"pipeline outputs differ from the reference: "
+                             f"{diff} ({len(want)} files)")
+    line = {"port_wall_s": port_s, "reference_host_wall_s": ref_s,
+            "port_stage_walls_s": stage_walls(port_out),
+            "reference_stage_walls_s": stage_walls(ref_out),
+            "launches": launches, "peak_device_mb": peak_mb,
+            "files_identical": sorted(got), "bytes": {
+                k: len(v) for k, v in got.items()},
+            "card": card}
+    say("pipeline", json.dumps(line))
+    say("pipeline", f"port {port_s:.2f} s (reference host {ref_s:.2f} s), "
+        f"{len(got)} files byte-identical, launches {launches}")
+    return launches
+
+
 def first_diff(a: bytes, b: bytes) -> str:
     la, lb = a.split(b"\n"), b.split(b"\n")
     for i, (x, y) in enumerate(zip(la, lb)):
@@ -245,40 +573,35 @@ def main(argv=None) -> int:
                                          profile="ont")
     names = [f"read{i}" for i in range(len(reads))]
     seqset = bench._pack(reads, names)
-    aligner = TorchBatchAligner(genome, device="cuda")
+    aligner = TorchBatchAligner(genome, device="cuda",
+                                junction_backend="host", seed_lookup=False)
     say("setup", f"{GENOME_MB:g} Mb genome, {len(reads)} ONT reads, index "
         f"built in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernels against their plain versions
+    t_phase = time.perf_counter()
     chain_err, chain_t = check_chain(aligner, reads[:1536], dev)
     shift_err, shift_t = check_shift_dp(genome.codes, dev)
+    comb_err, comb_t = check_junction(aligner, reads[:1536], dev)
+    ham_err, ham_t = check_hamming(genome.codes, dev)
+    check_torch_ops(aligner, reads[:1536], dev)
+    say("kernels", f"phase wall {time.perf_counter() - t_phase:.1f} s")
 
-    # 4. the slice
+    # 4. slice 1: host junctions
+    t_phase = time.perf_counter()
     aligner.warmup_chain_shapes()
     aligner.align_batch(names[:64], reads[:64])
-    aligner.stats = aligner.fresh_stats()
-    torch.cuda.reset_peak_memory_stats(dev)
-    _build.reset_launches()
-    with _build.timing() as kernel_ms:
-        t0 = time.perf_counter()
-        rb = aligner.align_seqset_packed(seqset)
-        sam = rb.emit_sam(aligner.refs)
-        torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
-    st = dict(aligner.stats)
-    for name, cnt in launches.items():
-        if cnt == 0:
-            raise AssertionError(f"kernel {name} was not launched by the "
-                                 "slice")
     ref = BatchAligner(genome, index=aligner.index, backend="host")
     t0 = time.perf_counter()
     rb_ref = ref.align_seqset_packed(seqset)
     sam_ref = rb_ref.emit_sam(ref.refs)
     ref_wall = time.perf_counter() - t0
-    if sam != sam_ref:
-        raise AssertionError("SAM bytes differ from the host backend: "
-                             + first_diff(sam, sam_ref))
+    rb, sam, wall, launches, kernel_ms, st, peak_mb = align_slice(
+        "slice 1", aligner, seqset, sam_ref, dev)
+    for name in ("chain_dp_backtrack", "shift_dp"):
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched by slice 1")
+    path_launches = [launches]
 
     def accuracy(r):
         prim = {a.qname: a for a in r.to_alnrecs() if not (a.flag & 0x100)}
@@ -308,14 +631,65 @@ def main(argv=None) -> int:
                           ("seed_s", "dispatch_s", "build_s", "polish_s")},
         "chain_fetch_wall_s": st["device_wall_s"],
         "anchors_chained": st["anchors"],
-        "peak_device_mb": torch.cuda.max_memory_allocated(dev) / 2**20,
+        "peak_device_mb": peak_mb,
         "card": card,
     }
     say("slice", json.dumps(slice_line))
     say("slice", f"{len(reads) / wall:.1f} reads/s, SAM identical to the host "
         f"backend ({len(sam)} bytes), exact exon chains {acc[1]:.4f}, splice-"
         f"site recall {acc[2]:.4f}, kernel share {kern_total / 1e3 / wall:.4f}"
-        f" of {wall:.2f} s on {card}")
+        f" of {wall:.2f} s on {card}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # 5. slice 2: device junction DP and device seed lookup
+    t_phase = time.perf_counter()
+    al2 = TorchBatchAligner(genome, index=aligner.index, device="cuda",
+                            junction_backend="device", seed_lookup=True)
+    if al2._seed_lookup is None:
+        raise AssertionError("the bench index does not take the device "
+                             "seed lookup")
+    al2.warmup_chain_shapes()
+    al2.align_batch(names[:64], reads[:64])
+    _, sam2, wall2, launches2, kernel_ms2, st2, peak2 = align_slice(
+        "slice 2", al2, seqset, sam_ref, dev)
+    for name in ("chain_dp_backtrack", "shift_dp", "combine"):
+        if launches2[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched by slice 2")
+    if st2["seed_lookup_calls"] == 0 or st2["junction_gaps"] == 0:
+        raise AssertionError(f"slice 2 did not run its device paths: {st2}")
+    path_launches.append(launches2)
+    slice2_line = {
+        "reads": len(reads), "wall_s": wall2,
+        "reads_per_s": len(reads) / wall2,
+        "sam_identical_to_host_backend": True,
+        "launches": launches2, "kernel_ms": kernel_ms2,
+        "kernel_share_of_wall": sum(kernel_ms2.values()) / 1e3 / wall2,
+        "junction_calls": st2["junction_calls"],
+        "junction_gaps": st2["junction_gaps"],
+        "junction_found": st2["junction_found"],
+        "seed_lookup_calls": st2["seed_lookup_calls"],
+        "device_wall_s": st2["device_wall_s"],
+        "host_phases_s": {k[:-2]: st2.get(k, 0.0) for k in
+                          ("seed_s", "dispatch_s", "build_s", "polish_s")},
+        "peak_device_mb": peak2, "card": card,
+    }
+    say("slice2", json.dumps(slice2_line))
+    say("slice2", f"{len(reads) / wall2:.1f} reads/s with device junctions "
+        f"({st2['junction_gaps']} gaps, {st2['junction_found']} placed) and "
+        f"device seed lookup ({st2['seed_lookup_calls']} calls); SAM "
+        f"identical to the host backend; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # 6. pipeline
+    t_phase = time.perf_counter()
+    path_launches.append(run_pipeline_phase(here, dev, card))
+    say("pipeline", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+
+    total = {k: sum(pl[k] for pl in path_launches) for k in PATH_KERNELS}
+    for name, n in total.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} was not launched by a "
+                                 "slice or pipeline phase")
 
     chain_ms, chain_plain = chain_t[CHAIN_SHAPES[0]]
     shift_ms, shift_plain = shift_t[SHIFT_SHAPES[1][:3]]
@@ -324,13 +698,23 @@ def main(argv=None) -> int:
         {"name": "chain_dp_backtrack", "route": "cuda",
          "source": "lr2rmats_tpu_torch/csrc/chain.cu",
          "replaces": "lr2rmats_tpu/ops/chain_pallas.py:39",
-         "launches": launches["chain_dp_backtrack"],
+         "launches": total["chain_dp_backtrack"],
          "max_abs_err": chain_err, "ms": chain_ms, "plain_ms": chain_plain},
         {"name": "shift_dp", "route": "cuda",
          "source": "lr2rmats_tpu_torch/csrc/shift_dp.cu",
          "replaces": "lr2rmats_tpu/ops/splice_device.py:295",
-         "launches": launches["shift_dp"],
+         "launches": total["shift_dp"],
          "max_abs_err": shift_err, "ms": shift_ms, "plain_ms": shift_plain},
+        {"name": "combine", "route": "cuda",
+         "source": "lr2rmats_tpu_torch/csrc/combine.cu",
+         "replaces": "lr2rmats_tpu/ops/splice_device.py:152",
+         "launches": total["combine"],
+         "max_abs_err": comb_err, "ms": comb_t[0], "plain_ms": comb_t[1]},
+        {"name": "hamming", "route": "cuda",
+         "source": "lr2rmats_tpu_torch/csrc/hamming.cu",
+         "replaces": "lr2rmats_tpu/junctions/sjcount_device.py:69",
+         "launches": total["hamming"],
+         "max_abs_err": ham_err, "ms": ham_t[0], "plain_ms": ham_t[1]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,12 +1,20 @@
 """Batched long-read aligner with its accelerator layer on PyTorch + CUDA.
 
 `TorchBatchAligner` subclasses the reference's `BatchAligner`
-(lr2rmats_tpu/align/batch.py) and keeps its host work unchanged: seeding
-(minimizer extraction + index lookup in csrc), anchor clustering, the
-native chain of small rows, splice-aware extension, RecordBatch assembly
-and SAM.  It overrides only the chain dispatch, which runs the fused chain
-DP + backtrack kernel (ops/chain.py), the whole-seqset entry point and the
-polish call, whose placement DP runs the shift-DP kernel (align/polish.py).
+(lr2rmats_tpu/align/batch.py) and keeps its host work unchanged: minimizer
+extraction, anchor clustering, the native chain of small rows, splice-aware
+extension, RecordBatch assembly and SAM.  The device paths are the port's:
+
+  * the chain dispatch runs the fused chain DP + backtrack kernel
+    (ops/chain.py);
+  * the junction polish runs its placement DP on the shift-DP kernel
+    (align/polish.py);
+  * with the device junction backend (`junction_backend="device"`, or
+    LR2RMATS_DEVICE_JUNCTIONS=1|scan|pallas) the extension's junction gaps
+    are placed by the shift-DP and combine kernels (ops/junction.py),
+    between the reference's native collect and assemble passes;
+  * with LR2RMATS_DEVICE_SEED=1 the index lookup runs against a
+    device-resident table (index/seed_device.py).
 
 Row routing is the reference's, so the same rows chain on the card, in the
 native small-row chain and on the host: rows of at most A_BUCKETS[0]
@@ -15,13 +23,15 @@ EXC_ROWS reference deltas >= 2^16, or with query positions >= 2^16 chain on
 the host; the rest go to the card in fixed CHAIN_CHUNK chunks per bucket.
 
 Dropped with respect to the reference, which needed them only to survive
-a remote TPU link: the weather router, the device-failure fallbacks, the
-u16/delta packing of the chain input, and the auto-batch doubling.
+a remote TPU link: the weather router, the device-failure fallbacks (a
+failing device path raises), the u16/delta packing of the chain input, and
+the auto-batch doubling.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -30,17 +40,21 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from lr2rmats_tpu.align.aligner import SpliceAligner
 from lr2rmats_tpu.align.batch import (A_BUCKETS, DEFAULT_BATCH,
                                       BatchAligner, _Row)
 from lr2rmats_tpu.align.chain import backtrack, chain_anchors
 from lr2rmats_tpu.align.records import RecordBatch
 from lr2rmats_tpu.io.fasta import SeqSet
 from lr2rmats_tpu.native import get_lib
-from lr2rmats_tpu.utils import log
+from lr2rmats_tpu.utils import default_threads, log
 
 from ..device import resolve_device
+from ..index.seed_device import TorchSeedLookup
 from ..ops import _build
 from ..ops.chain import chain_dp_backtrack, chain_params_for_kernel
+from ..ops.junction import (B_DEF as JUNCTION_BAND, MGAP, cell_ops, combine,
+                            junction_batch, prepare_junction_batch)
 from ..ops.splice import shift_dp
 from .polish import _PLACE_G, _PLACE_M, B as POLISH_BAND, polish_batch
 
@@ -51,12 +65,11 @@ from .polish import _PLACE_G, _PLACE_M, B as POLISH_BAND, polish_batch
 # that the same rows chain on the host in both.
 EXC_ROWS = 8
 
-# Environment switches of the reference that would reach its jax code.
-_REFUSED_ENV = {
-    "LR2RMATS_DEVICE_JUNCTIONS": (("1", "scan", "pallas"),
-                                  "Device junction DP"),
-    "LR2RMATS_DEVICE_SEED": (("1",), "Device seed lookup"),
-}
+# LR2RMATS_DEVICE_JUNCTIONS values of the reference (its scan and Pallas
+# backends): all select the port's one device junction path
+_JUNCTION_ENV = ("1", "scan", "pallas")
+# junction slots per candidate of the native collect pass
+_GSTRIDE = 64
 
 
 def _decode(out, part, nn, A, mask, ps, ss) -> None:
@@ -76,35 +89,83 @@ def _decode(out, part, nn, A, mask, ps, ss) -> None:
 
 
 class TorchBatchAligner(BatchAligner):
-    """BatchAligner whose chain DP and polish placement DP run as
-    hand-written CUDA kernels (device="cuda") or as their plain PyTorch
-    versions (device="cpu")."""
+    """BatchAligner whose device paths run as hand-written CUDA kernels
+    and torch ops (device="cuda") or as their plain PyTorch versions
+    (device="cpu")."""
 
     def __init__(self, genome, params=None, index=None, device="cuda",
-                 n_threads: Optional[int] = None):
-        for var, (on_values, item) in _REFUSED_ENV.items():
-            if os.environ.get(var, "") in on_values:
-                raise RuntimeError(
-                    f"{var}={os.environ[var]} selects a device path that "
-                    "lr2rmats_tpu_torch has not ported yet (ROADMAP.md "
-                    f"queue 1, '{item}'); unset it")
+                 n_threads: Optional[int] = None,
+                 junction_backend: Optional[str] = None,
+                 seed_lookup: Optional[bool] = None):
+        """junction_backend: "host" (inline in the native extension) or
+        "device" (ops/junction.py); None reads LR2RMATS_DEVICE_JUNCTIONS.
+        seed_lookup: index lookup on the device (when the index supports
+        it); None reads LR2RMATS_DEVICE_SEED=1.
+
+        The reference constructor is not called: it would build its JAX
+        seed table under LR2RMATS_DEVICE_SEED=1.  This sets the state that
+        the inherited host methods read."""
         self.device = resolve_device(device)
-        super().__init__(genome, params, index, backend="torch",
-                         n_threads=n_threads, junction_backend="host")
+        self.inner = SpliceAligner(genome, params, index)
+        self.p = self.inner.p
+        self.index = self.inner.index
+        self.refs = self.inner.refs
+        self.backend = "torch"
+        if junction_backend is None:
+            junction_backend = (
+                "device" if os.environ.get("LR2RMATS_DEVICE_JUNCTIONS")
+                in _JUNCTION_ENV else "host")
+        if junction_backend not in ("host", "device"):
+            raise ValueError(f"junction_backend must be 'host' or 'device', "
+                             f"got {junction_backend!r}")
+        self.junction_backend = junction_backend
+        if seed_lookup is None:
+            seed_lookup = os.environ.get("LR2RMATS_DEVICE_SEED") == "1"
+        self._seed_lookup = (TorchSeedLookup(self.index, self.device)
+                             if seed_lookup and
+                             TorchSeedLookup.supports(self.index) else None)
+        self.n_threads = max(1, n_threads if n_threads is not None
+                             else default_threads())
+        self._pool = None
+        self._pool_lock = threading.Lock()
+        self.chunk_scale = 1
+        self.record_margins = False
+        self._mapq_margins: Dict[str, float] = {}
         self.stats = self.fresh_stats()
 
     @staticmethod
     def fresh_stats() -> Dict[str, float]:
         return {"device_wall_s": 0.0, "anchors": 0, "device_calls": 0,
-                "chain_kernel_launches": 0, "shift_dp_kernel_launches": 0}
+                "chain_kernel_launches": 0, "shift_dp_kernel_launches": 0,
+                "combine_kernel_launches": 0, "seed_lookup_calls": 0,
+                "junction_calls": 0, "junction_gaps": 0, "junction_found": 0}
 
     @classmethod
     def from_jax_aligner(cls, al: BatchAligner, device="cuda"
                          ) -> "TorchBatchAligner":
         """A port aligner sharing `al`'s AlignParams / ChainParams and its
-        MinimizerIndex object."""
+        MinimizerIndex object, with its junction backend and its choice of
+        device seed lookup."""
         return cls(al.inner.genome, params=al.p, index=al.index,
-                   device=device, n_threads=al.n_threads)
+                   device=device, n_threads=al.n_threads,
+                   junction_backend=al.junction_backend,
+                   seed_lookup=al._seed_lookup is not None)
+
+    def _device_fallback(self, where: str, err: BaseException) -> None:
+        """The reference logs a device failure here and routes the rest of
+        the run to its host paths; the port has no fallback and re-raises."""
+        raise err
+
+    # ------------------------------------------------------------- seeding
+    def _batch_anchors(self, reads: List[np.ndarray]) -> List[_Row]:
+        """The reference's seeding (its lookup through `_seed_lookup` when
+        one is installed), counting the device lookups in stats."""
+        lk = self._seed_lookup
+        n0 = lk.calls if lk is not None else 0
+        rows = super()._batch_anchors(reads)
+        if lk is not None:
+            self.stats["seed_lookup_calls"] += lk.calls - n0
+        return rows
 
     # ------------------------------------------------------------ chaining
     def _prepare_dispatch(self, rows: List[_Row]):
@@ -213,11 +274,131 @@ class TorchBatchAligner(BatchAligner):
             _decode(out, part, nn, A, *res)
         return out
 
+    # ------------------------------------------------- junctions on device
+    def _collect_junction_gaps(self, lib, packed, n_cand):
+        """The native collect pass (csrc collect_gaps_batch_c) over the
+        batch's candidates.  Returns (col, gaps, dev_offs): col holds the
+        pass's output arrays for the assemble pass, gaps the (q, left_ref,
+        right_ref, el, er) slots left to the device DP in candidate order,
+        dev_offs the per-candidate offsets into gaps."""
+        p = self.p
+        (_, _, reads_concat, read_offs, cand_read, cand_strand, aq, ag,
+         a_offs, _) = packed
+        ref = self.inner.genome.codes
+        BLK = A_BUCKETS[-1]
+        n_slot = n_cand * _GSTRIDE
+        col = dict(
+            blocks=np.zeros(n_cand * BLK * 3, np.int64),
+            n_blocks=np.zeros(n_cand, np.int32),
+            jflag=np.zeros(n_slot, np.int8),
+            jq=np.zeros(n_slot * MGAP, np.uint8),
+            jqlen=np.zeros(n_slot, np.int32),
+            jlref=np.zeros(n_slot, np.int64),
+            jrref=np.zeros(n_slot, np.int64),
+            jclean_j=np.zeros(n_slot, np.int32),
+            jclean_vote=np.zeros(n_slot, np.int32),
+            jel=np.zeros(n_slot, np.int32),
+            jer=np.zeros(n_slot, np.int32),
+            n_junc=np.zeros(n_cand, np.int32))
+        lib.collect_gaps_batch_c(
+            reads_concat, read_offs, ref, len(ref),
+            cand_read, cand_strand, aq, ag, a_offs,
+            p.k, p.min_intron_gap, p.min_intron_len, MGAP,
+            n_cand, BLK, _GSTRIDE,
+            col["blocks"], col["n_blocks"], col["jflag"], col["jq"],
+            col["jqlen"], col["jlref"], col["jrref"], col["jclean_j"],
+            col["jclean_vote"], col["jel"], col["jer"], col["n_junc"],
+            self.n_threads)
+        jflag, jq, jqlen = col["jflag"], col["jq"], col["jqlen"]
+        dev_offs = np.zeros(n_cand + 1, np.int64)
+        gaps = []
+        for i in range(n_cand):
+            base = i * _GSTRIDE
+            for s in range(max(int(col["n_junc"][i]), 0)):
+                if jflag[base + s] == 0:
+                    k = base + s
+                    gaps.append((jq[k * MGAP: k * MGAP + int(jqlen[k])],
+                                 int(col["jlref"][k]), int(col["jrref"][k]),
+                                 int(col["jel"][k]), int(col["jer"][k])))
+            dev_offs[i + 1] = len(gaps)
+        return col, gaps, dev_offs
+
+    def _extend_device_junctions(self, lib, packed, n_cand, max_len):
+        """Two-pass extension with the junction DP on the device (reference
+        BatchAligner._extend_device_junctions): collect (C) -> placements
+        (shift-DP + combine kernels) -> cell op recovery (C) -> assemble
+        (C).  Runs on the build worker."""
+        p = self.p
+        (_, _, reads_concat, read_offs, cand_read, cand_strand, _, _, _,
+         _) = packed
+        ref = self.inner.genome.codes
+        col, gaps, dev_offs = self._collect_junction_gaps(lib, packed, n_cand)
+        n_dev = len(gaps)
+        B = JUNCTION_BAND
+        dev_stride = MGAP + 2 * B + 4
+        n_out = max(n_dev, 1)
+        dev_found = np.zeros(n_out, np.uint8)
+        dev_ilen = np.zeros(n_out, np.int64)
+        dev_vote = np.zeros(n_out, np.int32)
+        dev_lo = np.zeros((n_out, 2 * dev_stride), np.int32)
+        dev_ro = np.zeros((n_out, 2 * dev_stride), np.int32)
+        dev_ln = np.zeros(n_out, np.int32)
+        dev_rn = np.zeros(n_out, np.int32)
+        if n_dev:
+            st = self.stats
+            n0 = dict(_build.LAUNCHES)
+            batch = prepare_junction_batch(ref, gaps, B)
+            score, bj, bcl, bcr, vote, found = junction_batch(
+                batch, p.min_intron_len, self.device)
+            st["junction_calls"] += 1
+            st["junction_gaps"] += n_dev
+            st["junction_found"] += int(found.sum())
+            st["combine_kernel_launches"] += (_build.LAUNCHES["combine"] -
+                                              n0["combine"])
+            st["shift_dp_kernel_launches"] += (_build.LAUNCHES["shift_dp"] -
+                                               n0["shift_dp"])
+            dev_found[:n_dev] = found
+            dev_vote[:n_dev] = vote
+            dev_ilen[:n_dev] = (batch["span"] - batch["m"] + 2 * B -
+                                (bcl + bcr))
+            sel = np.nonzero(found)[0]
+            if len(sel):
+                lo, ln, ro, rn = cell_ops(lib, ref, gaps, sel, bj, bcl, bcr,
+                                          B)
+                dev_lo[sel] = lo
+                dev_ro[sel] = ro
+                dev_ln[sel] = ln
+                dev_rn[sel] = rn
+        stride = max_len + 80
+        pos_out = np.empty(n_cand, np.int64)
+        ops_out = np.empty(n_cand * 2 * stride, np.int32)
+        n_ops = np.empty(n_cand, np.int32)
+        ed_out = np.empty(n_cand, np.int64)
+        nm_out = np.empty(n_cand, np.int64)
+        vote_out = np.empty(n_cand, np.int32)
+        rc_out = np.empty(n_cand, np.int32)
+        lib.assemble_ops_batch_c(
+            reads_concat, read_offs, ref, len(ref),
+            self.index.chrom_offsets, len(self.index.chrom_offsets) - 1,
+            cand_read, cand_strand, col["blocks"], col["n_blocks"],
+            col["jflag"], col["jq"], col["jqlen"], col["jlref"],
+            col["jrref"], col["jclean_j"], col["jclean_vote"], col["jel"],
+            col["jer"], col["n_junc"],
+            dev_offs, dev_found, dev_ilen, dev_vote,
+            dev_lo.reshape(-1), dev_ln, dev_ro.reshape(-1), dev_rn,
+            dev_stride,
+            p.k, p.min_intron_gap, p.min_intron_len, p.band_pad,
+            p.ext_match, p.ext_mismatch, 4,
+            n_cand, A_BUCKETS[-1], _GSTRIDE, stride, self.n_threads,
+            pos_out, ops_out, n_ops, ed_out, nm_out, vote_out, rc_out)
+        return (stride, pos_out, ops_out, n_ops, ed_out, nm_out, vote_out,
+                rc_out)
+
     def warmup_chain_shapes(self) -> None:
         """Build the kernels and launch each production shape once (every
-        chain bucket chunk, and the polish shift DP), so neither the nvcc
-        build nor a first launch lands inside a timed region.  No-op on the
-        CPU."""
+        chain bucket chunk, the polish shift DP, and the junction shift DP
+        and combine), so neither the nvcc build nor a first launch lands
+        inside a timed region.  No-op on the CPU."""
         if self.device.type != "cuda":
             return
         _build.load()
@@ -234,6 +415,15 @@ class TorchBatchAligner(BatchAligner):
                           dtype=torch.int8, device=dev)
         m = torch.full((_PLACE_G,), _PLACE_M, dtype=torch.int32, device=dev)
         shift_dp(q, win, m, POLISH_BAND)
+        G, B = 128, JUNCTION_BAND
+        q = torch.zeros((MGAP, G), dtype=torch.int32, device=dev)
+        win = torch.zeros((MGAP + B, G), dtype=torch.int32, device=dev)
+        m = torch.full((G,), MGAP, dtype=torch.int32, device=dev)
+        S = shift_dp(q, win, m, B)
+        cls = torch.zeros((MGAP + 2 * B + 1, G), dtype=torch.int8,
+                          device=dev)
+        span = torch.full((G,), 1000, dtype=torch.int64, device=dev)
+        combine(S, S, m, span, cls, cls, m, m, B, self.p.min_intron_len)
         torch.cuda.synchronize(dev)
 
     # ------------------------------------------------------------ top level

@@ -29,12 +29,13 @@ from typing import Dict, List, Optional, Tuple
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
 SOURCES = [os.path.join(_PKG, "csrc", name)
-           for name in ("chain.cu", "shift_dp.cu")]
+           for name in ("chain.cu", "shift_dp.cu", "combine.cu",
+                        "hamming.cu")]
 BUILD_DIR = os.path.join(_REPO, "build", "lr2rmats_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-KERNELS = ("chain_dp_backtrack", "shift_dp")
+KERNELS = ("chain_dp_backtrack", "shift_dp", "combine", "hamming")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _lock = threading.Lock()
@@ -83,6 +84,7 @@ def _build(so: str) -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ll = ctypes.c_longlong
     lib.lr2_chain_dp_backtrack.restype = i
     lib.lr2_chain_dp_backtrack.argtypes = [
         p, p, p, i, i,                      # qpos, rpos, n_anchor, B, A
@@ -94,6 +96,17 @@ def _bind(lib: ctypes.CDLL) -> None:
         p]                                  # stream
     lib.lr2_shift_dp.restype = i
     lib.lr2_shift_dp.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.lr2_combine.restype = i
+    lib.lr2_combine.argtypes = [
+        p, p, p, p, p, p, p, p,             # SL, SR, m, span, dok, aok, el, er
+        i, i, i, ll,                        # M, G, B, min_intron
+        p, p, p, p, p, p,                   # score, j, cl, cr, vote, found
+        p]                                  # stream
+    lib.lr2_hamming.restype = i
+    lib.lr2_hamming.argtypes = [
+        p, ll, p, p, p, p, ll, p,           # buf, n, comb, comb_off, rid,
+        #                                     pos, C, mm
+        p]                                  # stream
     lib.lr2_cuda_error_string.restype = ctypes.c_char_p
     lib.lr2_cuda_error_string.argtypes = [i]
 

@@ -2,7 +2,9 @@
 reference: TorchBatchAligner on the CPU (the kernels' plain versions) must
 emit the same SAM bytes as BatchAligner(backend="jax") on the
 tests/test_batch_aligner.py genes and on a small bench.py workload; the
-slice must run with jax blocked; device="cuda" must raise without a card.
+slice must run with jax blocked; device="cuda" must raise without a card;
+the device switches select the port's device paths, which raise instead
+of falling back.
 """
 
 import os
@@ -152,11 +154,48 @@ def test_cuda_device_raises_without_card():
     ("LR2RMATS_DEVICE_JUNCTIONS", "pallas"),
     ("LR2RMATS_DEVICE_SEED", "1"),
 ])
-def test_refuses_unported_device_switches(monkeypatch, var, value):
+def test_refuses_unported_device_switches(monkeypatch, sim_seqset, var,
+                                          value):
+    """The device switches the port once refused now select its device
+    paths: the junction DP or the seed lookup runs (its stats count up)
+    and the SAM equals the host paths'."""
+    g, seqset = sim_seqset
+    for v in ("LR2RMATS_DEVICE_JUNCTIONS", "LR2RMATS_DEVICE_SEED"):
+        monkeypatch.delenv(v, raising=False)
+    host = TorchBatchAligner(g, device="cpu")
+    assert host.junction_backend == "host" and host._seed_lookup is None
+    want = host.align_seqset_packed(seqset).emit_sam(host.refs)
     monkeypatch.setenv(var, value)
-    g = Genome(["c"], np.zeros(1000, np.uint8), np.array([0, 1000]))
-    with pytest.raises(RuntimeError, match="ROADMAP"):
-        TorchBatchAligner(g, device="cpu")
+    port = TorchBatchAligner(g, index=host.index, device="cpu")
+    got = port.align_seqset_packed(seqset).emit_sam(port.refs)
+    st = port.stats
+    if var == "LR2RMATS_DEVICE_JUNCTIONS":
+        assert port.junction_backend == "device"
+        assert st["junction_calls"] > 0 and st["junction_gaps"] > 0
+        assert host.stats["junction_calls"] == 0
+    else:
+        assert port._seed_lookup is not None
+        assert st["seed_lookup_calls"] == port._seed_lookup.calls > 0
+    assert got == want
+
+
+def test_failing_seed_lookup_raises(monkeypatch, sim_seqset):
+    """A failing device seed lookup raises; the reference would log it and
+    ride its host paths for the rest of the run."""
+    g, seqset = sim_seqset
+    monkeypatch.setenv("LR2RMATS_DEVICE_SEED", "1")
+    port = TorchBatchAligner(g, device="cpu", junction_backend="device")
+
+    def boom(h):
+        raise RuntimeError("seed lookup failed on the card")
+
+    monkeypatch.setattr(port._seed_lookup, "lookup", boom)
+    with pytest.raises(RuntimeError, match="failed on the card"):
+        port.align_seqset_packed(seqset)
+    assert port._seed_lookup is not None
+    assert port.junction_backend == "device"
+    with pytest.raises(ValueError):
+        port._device_fallback("x", ValueError("raised as is"))
 
 
 def test_from_jax_aligner_shares_state(sim_seqset):
@@ -166,3 +205,11 @@ def test_from_jax_aligner_shares_state(sim_seqset):
     assert port.index is ref.index
     assert port.p is ref.p and port.p.chain is ref.p.chain
     assert port.device == torch.device("cpu")
+    assert port.junction_backend == "host" and port._seed_lookup is None
+    ref_dev = BatchAligner(g, backend="host", junction_backend="device",
+                           index=ref.index)
+    ref_dev._seed_lookup = object()          # the reference's choice only
+    port = TorchBatchAligner.from_jax_aligner(ref_dev, device="cpu")
+    assert port.junction_backend == "device"
+    assert port._seed_lookup is not None and port._seed_lookup is not \
+        ref_dev._seed_lookup

@@ -7,8 +7,17 @@ false).  This file imports no jax, so it also runs on a machine without it:
 
 Every comparison is exact: the chain kernel rounds each float32 add and
 multiply like the plain version's elementwise ops and calls the same
-log2f; the shift-DP scores are integers.
+log2f; the shift-DP scores are integers; the combine scores are integers or
+multiples of 3/8, evaluated in the plain version's order; the Hamming
+counts and seed ranges are integers.
+
+`junction_gaps` and `sim_dataset` are shared with the CPU tests
+(tests/test_torch_junction.py, tests/test_torch_pipeline.py).
 """
+
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -24,6 +33,74 @@ from lr2rmats_tpu_torch.ops.chain import (chain_dp_backtrack,
 from lr2rmats_tpu_torch.ops.splice import shift_dp, shift_dp_reference
 
 pytestmark = pytest.mark.cuda
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def junction_gaps(seed, n, kind="random", ref_len=100_000):
+    """(ref, gaps) of (q, left_ref, right_ref, el, er) junction gaps.
+
+    random: the tests/test_splice_device.py recipe (m < 64, half with a
+    planted GT..AG, 15% query mutations) plus anchor-prior centres and a
+    quarter of spans too short for any intron (not-found lanes);
+    ties: homopolymer query and windows, so many cells tie;
+    m0: empty gap queries."""
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, ref_len).astype(np.uint8)
+    if kind == "ties":
+        ref[:] = 0
+        ref[rng.random(ref_len) < 0.01] = 2
+    gaps = []
+    for _ in range(n):
+        m = 0 if kind == "m0" else int(rng.integers(0, 64))
+        lr = int(rng.integers(100, ref_len - 20000))
+        short = kind == "random" and rng.random() < 0.25
+        span = int(rng.integers(m + 4, m + 20) if short else
+                   rng.integers(m + 40, m + 5000))
+        q = ref[lr: lr + m].copy()
+        if kind == "random":
+            mut = rng.random(m) < 0.15
+            q[mut] = (q[mut] + rng.integers(1, 4, int(mut.sum()))) % 4
+        if kind != "ties" and rng.random() < 0.5:
+            j = int(rng.integers(0, m + 1))
+            ref[lr + j], ref[lr + j + 1] = 2, 3
+            last = lr + span - (m - j) - 1
+            ref[last - 1], ref[last] = 0, 2
+        gaps.append((q, lr, lr + span, int(rng.integers(0, 7)),
+                     int(rng.integers(0, 7))))
+    return ref, gaps
+
+
+def sim_dataset(out, long_reads=300, short_pairs=1200, genes=10,
+                genome_mb=0.5):
+    """scripts/simulate.py at a small size (seed 7); returns out."""
+    subprocess.run([sys.executable, str(REPO / "scripts" / "simulate.py"),
+                    "--out", str(out), "--genome-mb", str(genome_mb),
+                    "--genes", str(genes), "--long-reads", str(long_reads),
+                    "--short-pairs", str(short_pairs)],
+                   check=True, capture_output=True)
+    return out
+
+
+def pipeline_config(data, out):
+    from lr2rmats_tpu.pipeline.config import PipelineConfig, SampleReads
+    cfg = PipelineConfig(genome_fasta=f"{data}/genome.fa",
+                         gtf=f"{data}/anno.gtf")
+    cfg.samples["samp1"] = SampleReads(f"{data}/long.fa",
+                                       f"{data}/short_1.fa",
+                                       f"{data}/short_2.fa")
+    cfg.out_dir = str(out)
+    return cfg
+
+
+def pipeline_outputs(out):
+    """Bytes of every file the pipeline outputs: output/* and the SAM, BED
+    and junction table of alignment/."""
+    out = pathlib.Path(out)
+    files = sorted((out / "output").iterdir()) + [
+        out / "alignment" / f"samp1.{n}" for n in
+        ("minimap.sam", "minimap.bed", "STARSJ.out.tab")]
+    return {str(f.relative_to(out)): f.read_bytes() for f in files}
 
 
 @pytest.fixture
@@ -139,3 +216,90 @@ def test_slice_on_card_matches_host_backend(dev):
     assert port.stats["chain_kernel_launches"] > 0
     assert port.stats["shift_dp_kernel_launches"] > 0
     assert got == ref.align_seqset_packed(seqset).emit_sam(ref.refs)
+
+
+def _junction_tensors(ref, gaps, dev):
+    from lr2rmats_tpu_torch.ops.junction import prepare_junction_batch
+    b = prepare_junction_batch(ref, gaps)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+         for k, v in b.items() if k != "B"}
+    SL = shift_dp(t["q"], t["lwin"], t["m"], 4)
+    SR = shift_dp(t["qr"], t["rwin"], t["m"], 4)
+    return (SL, SR, t["m"], t["span"], t["dok"], t["aok"], t["el"], t["er"],
+            4)
+
+
+@pytest.mark.parametrize("kind,G", [("random", 2048), ("ties", 300),
+                                    ("m0", 40), ("random", 5)])
+def test_combine_kernel_matches_plain(dev, kind, G):
+    from lr2rmats_tpu_torch.ops.junction import combine, combine_reference
+    args = _junction_tensors(*junction_gaps(G, G, kind), dev)
+    before = _build.LAUNCHES["combine"]
+    got = combine(*args, 30)
+    assert _build.LAUNCHES["combine"] == before + 1
+    want = combine_reference(*args, 30)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if kind == "random":
+        assert bool(want[5].any()) and not bool(want[5].all())
+
+
+def test_hamming_kernel_matches_plain(dev):
+    from lr2rmats_tpu_torch.junctions.sjcount_device import (
+        hamming, hamming_reference)
+    rng = np.random.default_rng(5)
+    buf = rng.integers(0, 4, 200_000).astype(np.uint8)
+    lens = rng.integers(20, 160, 500)
+    comb = rng.integers(0, 4, int(lens.sum())).astype(np.uint8)
+    off = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    C = 20_000
+    rid = rng.integers(0, len(lens), C).astype(np.int32)
+    pos = rng.integers(-50, len(buf) + 50, C).astype(np.int64)
+    pos[:100] = len(buf) - 10                     # windows past the end
+    args = [torch.from_numpy(a).to(dev) for a in (buf, comb, off, rid, pos)]
+    before = _build.LAUNCHES["hamming"]
+    got = hamming(*args)
+    assert _build.LAUNCHES["hamming"] == before + 1
+    want = hamming_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_seed_lookup_card_matches_cpu(dev):
+    from lr2rmats_tpu.index.minimizer import MinimizerIndex
+    from lr2rmats_tpu.io.fasta import Genome
+    from lr2rmats_tpu_torch.index.seed_device import TorchSeedLookup
+    rng = np.random.default_rng(3)
+    codes = rng.integers(0, 4, 500_000).astype(np.uint8)
+    idx = MinimizerIndex.build(Genome(["c"], codes,
+                                      np.array([0, len(codes)], np.int64)))
+    card, cpu = TorchSeedLookup(idx, dev), TorchSeedLookup(idx, "cpu")
+    for nq in (0, 1, 4096, 5000):
+        q = np.concatenate([rng.choice(idx.hashes, nq // 2),
+                            rng.integers(0, 1 << 30, nq - nq // 2).astype(
+                                np.uint64)])
+        for a, b in zip(card.lookup(q), cpu.lookup(q)):
+            np.testing.assert_array_equal(a, b)
+    assert card.calls == 3
+
+
+def test_pipeline_on_card_matches_host_reference(dev, tmp_path, monkeypatch):
+    """The port's pipeline with the three device switches on the card gives
+    the reference host pipeline's bytes."""
+    from lr2rmats_tpu_torch._reference import parallel_module
+    from lr2rmats_tpu_torch.pipeline.stages import run_pipeline
+    parallel_module("distributed")  # the reference pipeline imports it
+    from lr2rmats_tpu.pipeline.stages import run_pipeline as ref_pipeline
+    data = sim_dataset(tmp_path / "data")
+    ref_pipeline(pipeline_config(data, tmp_path / "ref"), use_tpu=False)
+    for var in ("LR2RMATS_DEVICE_JUNCTIONS", "LR2RMATS_DEVICE_SEED",
+                "LR2RMATS_DEVICE_SJCOUNT"):
+        monkeypatch.setenv(var, "1")
+    before = dict(_build.LAUNCHES)
+    run_pipeline(pipeline_config(data, tmp_path / "port"), device="cuda")
+    for k in ("chain_dp_backtrack", "shift_dp", "combine", "hamming"):
+        assert _build.LAUNCHES[k] > before[k], k
+    assert pipeline_outputs(tmp_path / "port") == \
+        pipeline_outputs(tmp_path / "ref")
