@@ -36,11 +36,27 @@ exits non-zero):
      LR2RMATS_DEVICE_JUNCTIONS=1, LR2RMATS_DEVICE_SEED=1 and
      LR2RMATS_DEVICE_SJCOUNT=1, and the reference's
      run_pipeline(use_tpu=False); every file under output/, the SAM, the
-     BED and the STARSJ table must be byte-identical.
-Launch counts are set to 0 before each of phases 4-6 and read after; every
-kernel must have been launched by one of them.  Then one JSON line with the
-kernels, and the last line {"ok": true, "device": {...}}.  Work files go
-under build/chip_smoke/.
+     BED and the STARSJ table must be byte-identical;
+  7. multi-process: (a) a world-1 process group (gloo for the CPU, NCCL for
+     the card) and make_mesh(1, 1, "cuda"); sharded_align_step on the bench
+     index and the first batch's reads (Q=128 minimizers, 4 hits per seed,
+     so 512 anchors per read, the chain kernel's limit) equals the same
+     step over the plain chain DP exactly; (b) phase 6's long reads split
+     into two samples (halves, each with all short pairs) through two
+     `python -m lr2rmats_tpu_torch run` processes of one group on the card
+     with the three device switches; updated.gtf and every per-sample
+     output equal the reference's host pipeline on the same lists; (c) two
+     processes, each holding one hash range of the bench index
+     (ShardedMinimizerIndex.build(local_shard=pid)), align 768 bench reads
+     each in lockstep through the collective lookup with
+     TorchBatchAligner(device="cuda"); the primaries equal the
+     single-process full-index host run.  Both processes of (b) and (c)
+     share the one card; their payloads travel over gloo.
+Launch counts are set to 0 before each of phases 4-7 and read after (the
+processes of 7b and 7c start at 0 and report theirs); every kernel must
+have been launched by one of them.  Then one JSON line with the kernels,
+and the last line {"ok": true, "device": {...}}.  Work files go under
+build/chip_smoke/.
 
 Neither this script nor the port imports jax: it is blocked below.
 """
@@ -68,6 +84,9 @@ HAMMING_C, HAMMING_L = 131072, 150
 SWITCHES = ("LR2RMATS_DEVICE_JUNCTIONS", "LR2RMATS_DEVICE_SEED",
             "LR2RMATS_DEVICE_SJCOUNT")
 PATH_KERNELS = ("chain_dp_backtrack", "shift_dp", "combine", "hamming")
+MESH_READS, MESH_Q, MESH_H = 1536, 128, 4
+LOOKUP_READS, LOOKUP_BATCH = 768, 256
+GROUP_TIMEOUT_S = 300
 
 
 def say(tag, msg):
@@ -516,6 +535,299 @@ def run_pipeline_phase(here, dev, card):
     return launches
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_group(cmds, env, cwd, timeout=GROUP_TIMEOUT_S):
+    """Start every command at once and wait for all under one deadline;
+    as soon as one fails or the deadline passes, kill the rest and raise.
+    Returns (walls, stdouts)."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, env=env, cwd=cwd, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for c in cmds]
+    walls = [None] * len(procs)
+    try:
+        while any(w is None for w in walls):
+            for i, p in enumerate(procs):
+                if walls[i] is None and p.poll() is not None:
+                    walls[i] = time.perf_counter() - t0
+            if any(p.poll() not in (None, 0) for p in procs) or \
+                    time.perf_counter() - t0 > timeout:
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        outs = [p.communicate(timeout=60) for p in procs]
+    for i, (p, (so, se)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"process {i} of {len(procs)} exited "
+                                 f"{p.returncode}:\n{se[-4000:]}")
+    return walls, [so for so, _ in outs]
+
+
+def mesh_reads(aligner, reads):
+    """The first MESH_Q minimizer hashes (uint32) and positions of each
+    read; reads with fewer are padded with a hash absent from the index."""
+    h, qp, _, rid, _ = aligner._batch_minimizers(reads)
+    B = len(reads)
+    rh = np.full((B, MESH_Q), 0xFFFFFFFF, np.uint32)
+    rq = np.zeros((B, MESH_Q), np.int32)
+    counts = np.bincount(rid, minlength=B)
+    starts = np.cumsum(counts) - counts
+    for b in range(B):
+        n = min(int(counts[b]), MESH_Q)
+        rh[b, :n] = h[starts[b]: starts[b] + n]
+        rq[b, :n] = qp[starts[b]: starts[b] + n]
+    return rh, rq
+
+
+def check_mesh_step(aligner, reads, dev, card):
+    """7a: sharded_align_step on a (1, 1) card mesh, kernel against the
+    plain chain DP; returns (launches, max_abs_err)."""
+    import torch
+    import torch.distributed as dist
+    from lr2rmats_tpu_torch.ops import _build
+    from lr2rmats_tpu_torch.parallel.distributed import backend
+    from lr2rmats_tpu_torch.parallel.mesh import (make_mesh,
+                                                  sharded_align_step)
+    idx = aligner.index
+    if int(idx.hashes.max()) >= 0xFFFFFFFF or int(idx.pos.max()) >= 2**30:
+        raise AssertionError("bench index does not fit the mesh step")
+    idx_hash = idx.hashes.astype(np.uint32)
+    idx_pos = idx.pos.astype(np.int32)
+    rh, rq = mesh_reads(aligner, reads)
+    dist.init_process_group(backend=backend(),
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1, "cuda")
+        step = sharded_align_step(mesh, aligner.p.chain, MESH_H)
+        plain = sharded_align_step(mesh, aligner.p.chain, MESH_H, plain=True)
+        step(idx_hash, idx_pos, rh, rq)             # warm-up
+        torch.cuda.synchronize(dev)
+        _build.reset_launches()
+        with _build.timing() as kernel_ms:
+            t0 = time.perf_counter()
+            got = step(idx_hash, idx_pos, rh, rq)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        want = plain(idx_hash, idx_pos, rh, rq)
+        torch.cuda.synchronize(dev)
+        same = torch.equal(got, want)
+        fin = want > -1e17
+        err = float((got - want)[fin].abs().max()) if bool(fin.any()) \
+            else 0.0
+        step_ms = cuda_ms(lambda: step(idx_hash, idx_pos, rh, rq), 5)
+        plain_ms = cuda_ms(lambda: plain(idx_hash, idx_pos, rh, rq), 1)
+    finally:
+        dist.destroy_process_group()
+    line = {"reads": len(reads), "Q": MESH_Q, "hits_per_seed": MESH_H,
+            "anchors_per_read": MESH_Q * MESH_H,
+            "index_entries": len(idx_hash), "exact": same,
+            "max_abs_err": err, "reads_with_anchors": int(fin.sum()),
+            "score_max": float(want.max()),
+            "chain_kernel_ms": kernel_ms.get("chain_dp_backtrack", 0.0),
+            "step_ms": step_ms, "plain_step_ms": plain_ms,
+            "step_wall_s": wall, "launches": launches, "card": card}
+    say("multi", "mesh step " + json.dumps(line))
+    if not same:
+        b = int(torch.nonzero(got != want)[0])
+        raise AssertionError(f"mesh step: kernel score {got[b].item()} != "
+                             f"plain {want[b].item()} at read {b}")
+    if launches["chain_dp_backtrack"] == 0:
+        raise AssertionError("the mesh step did not launch the chain kernel")
+    return launches, err
+
+
+def log_launches(path):
+    """The kernel launches a pipeline process logged."""
+    with open(path) as f:
+        for ln in f:
+            if "kernel launches {" in ln:
+                return json.loads(ln[ln.index("{"):])
+    raise AssertionError(f"{path}: no kernel launch line")
+
+
+def split_fasta(src, dst_a, dst_b):
+    """The first half of src's records into dst_a, the rest into dst_b."""
+    with open(src) as f:
+        lines = f.read().splitlines(keepends=True)
+    heads = [i for i, ln in enumerate(lines) if ln.startswith(">")]
+    cut = heads[len(heads) // 2]
+    for dst, part in ((dst_a, lines[:cut]), (dst_b, lines[cut:])):
+        with open(dst, "w") as f:
+            f.writelines(part)
+    return len(heads) // 2, len(heads) - len(heads) // 2
+
+
+def gathered_line(path):
+    """(payload bytes, seconds) of the gather a pipeline process logged."""
+    with open(path) as f:
+        for ln in f:
+            if "pass-2 GTFs," in ln:
+                w = ln.split()
+                at = w.index("payload")
+                return int(w[at - 1]), float(w[w.index("in", at) + 1])
+    raise AssertionError(f"{path}: no gather line")
+
+
+def run_two_process_pipeline(here, card):
+    """7b: phase 6's data as two samples through a 2-process group of the
+    port's CLI on the card, against the reference host pipeline on the
+    same lists; returns the kernel launches of both processes."""
+    from lr2rmats_tpu.pipeline.config import PipelineConfig
+    from lr2rmats_tpu_torch._reference import parallel_module
+    parallel_module("distributed")   # the reference pipeline imports it
+    from lr2rmats_tpu.pipeline.stages import run_pipeline as ref_pipeline
+    work = os.path.join(here, "build", "chip_smoke")
+    data = os.path.join(work, "data")
+    longs = [os.path.join(work, f"long_{t}.fa") for t in "ab"]
+    n_reads = split_fasta(os.path.join(data, "long.fa"), *longs)
+    long_list = os.path.join(work, "long.list")
+    short_list = os.path.join(work, "short.list")
+    shorts = f"{data}/short_1.fa {data}/short_2.fa"
+    with open(long_list, "w") as f:
+        f.write(f"2\n1\n{longs[0]}\n1\n{longs[1]}\n")
+    with open(short_list, "w") as f:
+        f.write(f"2\n1\n{shorts}\n1\n{shorts}\n")
+    genome, gtf = f"{data}/genome.fa", f"{data}/anno.gtf"
+    out = os.path.join(work, "multi")
+    coord = f"127.0.0.1:{free_port()}"
+    env = {**os.environ, "PYTHONPATH": here, **{v: "1" for v in SWITCHES}}
+    cmds = [[sys.executable, "-m", "lr2rmats_tpu_torch", "run", "--genome",
+             genome, "--gtf", gtf, "--long-read-list", long_list,
+             "--short-read-list", short_list, "--out-dir", out,
+             "--coordinator", coord, "--num-processes", "2",
+             "--process-id", str(pid)] for pid in range(2)]
+    walls, _ = run_group(cmds, env, here)
+    ref_out = os.path.join(work, "multi_ref")
+    cfg = PipelineConfig.from_read_lists(genome, gtf, long_list, short_list)
+    cfg.out_dir = ref_out
+    t0 = time.perf_counter()
+    ref_pipeline(cfg, use_tpu=False)
+    ref_s = time.perf_counter() - t0
+    got, want = ({f: open(os.path.join(o, "output", f), "rb").read()
+                  for f in sorted(os.listdir(os.path.join(o, "output")))}
+                 for o in (out, ref_out))
+    diff = [k for k in sorted(set(got) | set(want))
+            if got.get(k) != want.get(k)]
+    if diff or len(want) != 15:
+        raise AssertionError(f"2-process pipeline outputs differ from the "
+                             f"reference: {diff} ({len(want)} files)")
+    logs = [os.path.join(out, "logs", f"pipeline.p{pid}.log")
+            for pid in range(2)]
+    launches = [log_launches(p) for p in logs]
+    gather_b, gather_s = gathered_line(logs[0])
+    line = {"long_reads_per_sample": n_reads,
+            "process_walls_s": walls, "reference_host_wall_s": ref_s,
+            "process_stage_walls_s": stage_walls(out),
+            "reference_stage_walls_s": stage_walls(ref_out),
+            "gathered_payload_bytes": gather_b, "gather_s": gather_s,
+            "launches": launches, "files_identical": sorted(got),
+            "card": card}
+    say("multi", "pipeline " + json.dumps(line))
+    say("multi", f"2-process pipeline {max(walls):.2f} s (reference host, "
+        f"one process, {ref_s:.2f} s; not alternated), {len(got)} files "
+        f"byte-identical, {gather_b} payload bytes gathered in "
+        f"{gather_s:.4f} s")
+    for name in ("chain_dp_backtrack", "shift_dp", "combine", "hamming"):
+        if not all(la[name] for la in launches):
+            raise AssertionError(f"a pipeline process did not launch {name}")
+    return launches
+
+
+_LOOKUP_WORKER = r"""
+import json, sys
+import numpy as np
+import bench
+from lr2rmats_tpu_torch.ops import _build
+from lr2rmats_tpu_torch.align.batch import TorchBatchAligner
+from lr2rmats_tpu_torch.parallel.distributed import (end_multihost,
+                                                     init_multihost)
+from lr2rmats_tpu_torch.parallel.shard_index import ShardedMinimizerIndex
+pid, coord, n_reads, n_use, batch, out = sys.argv[1:7]
+pid, n_reads, n_use, batch = int(pid), int(n_reads), int(n_use), int(batch)
+init_multihost(coord, 2, pid)
+rng = np.random.default_rng(%d)
+genome = bench.build_genome(int(%r * 1e6), rng)
+reads, _ = bench.simulate_reads(genome, n_reads, rng, profile="ont")
+idx = ShardedMinimizerIndex.build(genome, 2, local_shard=pid)
+al = TorchBatchAligner(genome, index=idx, device="cuda",
+                       junction_backend="host", seed_lookup=False)
+al.warmup_chain_shapes()
+mine = list(range(pid, n_use, 2))
+_build.reset_launches()
+recs = []
+for off in range(0, len(mine), batch):
+    part = mine[off: off + batch]
+    h = al.dispatch_batch([f"read{i}" for i in part], [reads[i] for i in part])
+    recs.extend(al.finish_batch(h))
+prim = sorted(r.qname + " " + str(r.pos) + " " +
+              " ".join(str(c) for c in r.cigar) for r in recs
+              if not (r.flag & 0x100))
+with open(f"{out}.{pid}.json", "w") as f:
+    json.dump({"primaries": prim, "resident_bytes": idx.resident_bytes(),
+               "launches": dict(_build.LAUNCHES),
+               "coll_stats": idx.coll_stats}, f)
+end_multihost()
+""" % (SEED, GENOME_MB)
+
+
+def run_sharded_lookup(here, genome, full, names, reads, n_reads, card):
+    """7c: the 2-process collective lookup on the card against the
+    single-process full-index host run; returns both processes'
+    launches."""
+    from lr2rmats_tpu.align.batch import BatchAligner
+    work = os.path.join(here, "build", "chip_smoke")
+    out = os.path.join(work, "lookup")
+    coord = f"127.0.0.1:{free_port()}"
+    n_use = 2 * LOOKUP_READS
+    env = {**os.environ, "PYTHONPATH": here}
+    walls, _ = run_group([[sys.executable, "-c", _LOOKUP_WORKER, str(pid),
+                           coord, str(n_reads), str(n_use),
+                           str(LOOKUP_BATCH), out] for pid in range(2)],
+                         env, here)
+    res = []
+    for pid in range(2):
+        with open(f"{out}.{pid}.json") as f:
+            res.append(json.load(f))
+    host = BatchAligner(genome, index=full, backend="host")
+    full_bytes = full.hashes.nbytes + full.pos.nbytes + full.strand.nbytes
+    for pid in range(2):
+        mine = list(range(pid, n_use, 2))
+        recs = []
+        for off in range(0, len(mine), LOOKUP_BATCH):
+            part = mine[off: off + LOOKUP_BATCH]
+            recs.extend(host.align_batch([names[i] for i in part],
+                                         [reads[i] for i in part]))
+        want = sorted(r.qname + " " + str(r.pos) + " " +
+                      " ".join(str(c) for c in r.cigar) for r in recs
+                      if not (r.flag & 0x100))
+        if res[pid]["primaries"] != want:
+            raise AssertionError(f"sharded lookup process {pid}: primaries "
+                                 "differ from the full-index host run")
+        if res[pid]["launches"]["chain_dp_backtrack"] == 0:
+            raise AssertionError(f"sharded lookup process {pid} did not "
+                                 "launch the chain kernel")
+    line = {"reads_per_process": LOOKUP_READS, "batch": LOOKUP_BATCH,
+            "process_walls_s": walls,
+            "primaries": [len(r["primaries"]) for r in res],
+            "resident_index_bytes": [r["resident_bytes"] for r in res],
+            "full_index_bytes": full_bytes,
+            "coll_stats": [r["coll_stats"] for r in res],
+            "launches": [r["launches"] for r in res], "card": card}
+    say("multi", "sharded lookup " + json.dumps(line))
+    return [r["launches"] for r in res]
+
+
 def first_diff(a: bytes, b: bytes) -> str:
     la, lb = a.split(b"\n"), b.split(b"\n")
     for i, (x, y) in enumerate(zip(la, lb)):
@@ -685,11 +997,21 @@ def main(argv=None) -> int:
     path_launches.append(run_pipeline_phase(here, dev, card))
     say("pipeline", f"phase wall {time.perf_counter() - t_phase:.1f} s")
 
+    # 7. multi-process: mesh step, 2-process pipeline, sharded lookup
+    t_phase = time.perf_counter()
+    mesh_launches, mesh_err = check_mesh_step(
+        aligner, reads[:MESH_READS], dev, card)
+    path_launches.append(mesh_launches)
+    path_launches.extend(run_two_process_pipeline(here, card))
+    path_launches.extend(run_sharded_lookup(here, genome, aligner.index,
+                                            names, reads, args.reads, card))
+    say("multi", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+
     total = {k: sum(pl[k] for pl in path_launches) for k in PATH_KERNELS}
     for name, n in total.items():
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched by a "
-                                 "slice or pipeline phase")
+                                 "slice, pipeline or multi-process phase")
 
     chain_ms, chain_plain = chain_t[CHAIN_SHAPES[0]]
     shift_ms, shift_plain = shift_t[SHIFT_SHAPES[1][:3]]
@@ -699,7 +1021,8 @@ def main(argv=None) -> int:
          "source": "lr2rmats_tpu_torch/csrc/chain.cu",
          "replaces": "lr2rmats_tpu/ops/chain_pallas.py:39",
          "launches": total["chain_dp_backtrack"],
-         "max_abs_err": chain_err, "ms": chain_ms, "plain_ms": chain_plain},
+         "max_abs_err": max(chain_err, mesh_err), "ms": chain_ms,
+         "plain_ms": chain_plain},
         {"name": "shift_dp", "route": "cuda",
          "source": "lr2rmats_tpu_torch/csrc/shift_dp.cu",
          "replaces": "lr2rmats_tpu/ops/splice_device.py:295",

@@ -31,6 +31,7 @@ from . import _build
 
 NEG = -1e18
 MAX_EXAMINE = 48          # align/chain.py:backtrack's candidate cap
+K_MAX_A = 512             # anchors per row the kernel takes (chain.cu kMaxA)
 
 
 class KernelChainParams(NamedTuple):
@@ -165,6 +166,17 @@ def chain_dp_backtrack_reference(qpos, rpos, n_anchor, p: KernelChainParams,
 
 
 # -------------------------------------------------------------- wrapper
+
+
+def check_anchor_width(A: int, device: torch.device) -> None:
+    """Raise when rows of A anchors exceed what the kernel takes on
+    `device` (K_MAX_A on CUDA; the plain version has no limit).  The
+    kernel refuses such a launch itself; this lets a caller raise before
+    work that must not start, such as a collective."""
+    if device.type == "cuda" and A > K_MAX_A:
+        raise ValueError(
+            f"chain kernel: {A} anchors per row exceed csrc/chain.cu's "
+            f"kMaxA = {K_MAX_A}")
 
 
 def _check(qpos, rpos, n_anchor):

@@ -6,7 +6,9 @@ host code and is handed to the reference's `main`; `run` drives the port's
 pipeline (pipeline/stages.py) on the card, or on the CPU with `--cpu`
 (the plain PyTorch versions of the kernels).  The device switches are the
 reference's environment variables: LR2RMATS_DEVICE_JUNCTIONS=1,
-LR2RMATS_DEVICE_SEED=1, LR2RMATS_DEVICE_SJCOUNT=1.
+LR2RMATS_DEVICE_SEED=1, LR2RMATS_DEVICE_SJCOUNT=1.  `--coordinator
+host:port --num-processes N --process-id I` joins a process group of N
+(parallel/distributed.py), one command per process.
 """
 
 from __future__ import annotations
@@ -47,13 +49,15 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd != "run":
         return reference_main(argv)
+    from ..parallel.distributed import end_multihost, init_multihost
     from .stages import run_pipeline
     try:
         if args.num_processes and args.num_processes > 1:
-            raise ValueError(
-                "--num-processes > 1: lr2rmats_tpu_torch runs one process "
-                "on one device; multi-process runs wait for the port's "
-                "multi-GPU slice (ROADMAP.md queue 1)")
+            if args.coordinator is None or args.process_id is None:
+                raise ValueError("--num-processes > 1 needs --coordinator "
+                                 "and --process-id")
+            init_multihost(args.coordinator, args.num_processes,
+                           args.process_id)
         run_pipeline(_config(args), device="cpu" if args.cpu else "cuda")
     except FileNotFoundError as e:
         print(f'[{PROG}] Can not open "{e.filename or e}"', file=sys.stderr)
@@ -61,6 +65,8 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"[{PROG}] {e}", file=sys.stderr)
         return 1
+    finally:
+        end_multihost()
     return 0
 
 

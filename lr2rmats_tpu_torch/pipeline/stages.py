@@ -16,24 +16,36 @@ every host stage are the reference's own functions:
   gtf_novel    : update-gtf pass 2 (with SJ) -> gtf_novel.gtf + reports
   update       : cross-sample unique-gtf + final merge+sort -> updated.gtf
 
+Under a process group (parallel/distributed.py init_multihost) each
+process runs the round-robin shard of samples it owns on its own device,
+`cuda:{process_id % device_count}` (or the CPU), with `.p{pid}` suffixes on
+its log and index benchmark file; the pass-2 GTFs are all-gathered and
+process 0 alone writes config.yaml, the gathered GTFs and updated.gtf,
+while the others wait at a barrier.  The port keeps one device per
+process, so, as in the reference with one local device, unique-gtf runs
+without the device gather of its candidates (`device_gather=False`).
+
 Left out with respect to the reference: the device-init probe and the link
-preflip (they guarded a remote TPU link), the JAX compile cache, the
-weather numbers of the align log, and the multi-process group with its
-payload gather and the device gather of unique-gtf; those wait for the
-port's multi-GPU slice (ROADMAP queue 1).
+preflip (they guarded a remote TPU link), the JAX compile cache and the
+weather numbers of the align log.
 """
 
 from __future__ import annotations
 
+import fcntl
+import json
 import os
 import shutil
 import sys
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from lr2rmats_tpu.align.aligner import AlignParams
+from lr2rmats_tpu.index.minimizer import MinimizerIndex
 from lr2rmats_tpu.io.fasta import Genome, read_fasta
 from lr2rmats_tpu.io.gtf import ChrNames, read_anno_trans
 from lr2rmats_tpu.io.sam import sam_header
@@ -50,10 +62,13 @@ from lr2rmats_tpu.transcript.model import UpdateGtfParams
 from lr2rmats_tpu.utils import Timer, log
 from lr2rmats_tpu.utils.log import set_log_stream
 
-from .._reference import parallel_module
 from ..align.batch import TorchBatchAligner
 from ..device import resolve_device
 from ..junctions.sjcount import count_junction_support
+from ..ops import _build
+from ..parallel.distributed import (barrier, gather_indexed_payloads,
+                                    multihost_info, owned_indices)
+from ..parallel.shard_index import ShardedMinimizerIndex
 
 
 class _Tee:
@@ -106,44 +121,74 @@ def _write_config(cfg: PipelineConfig, path: str) -> None:
         }, f, default_flow_style=False)
 
 
+def _load_index(genome, cache: str, shared: bool) -> MinimizerIndex:
+    """MinimizerIndex.build_or_load; with `shared` (processes of one group
+    starting together) under an exclusive lock on `<cache>.lock`, so one
+    process builds and writes the cache and the others then load it."""
+    if not shared:
+        return MinimizerIndex.build_or_load(genome, cache)
+    try:
+        lock = open(cache + ".lock", "a")
+    except OSError:   # read-only directory: no process writes the cache
+        return MinimizerIndex.build_or_load(genome, cache)
+    with lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return MinimizerIndex.build_or_load(genome, cache)
+
+
+def _process_device(device, pid: int) -> torch.device:
+    """The device of process `pid`: a bare "cuda" becomes
+    cuda:{pid % device_count}."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", pid % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    return dev
+
+
 def run_pipeline(cfg: PipelineConfig,
                  align_params: Optional[AlignParams] = None,
                  device="cuda") -> str:
-    """Run the full two-pass pipeline on one device; returns the
-    updated.gtf path.  Outputs are byte-identical to the reference's
-    run_pipeline on the same inputs."""
+    """Run the full two-pass pipeline; returns the updated.gtf path.
+    Outputs are byte-identical to the reference's run_pipeline on the same
+    inputs, for any number of processes."""
     if not cfg.samples:
         raise ValueError("pipeline config has no samples (cfg.samples "
                          "is empty)")
-    if parallel_module("distributed").multihost_info()[1] > 1:
-        raise RuntimeError(
-            "lr2rmats_tpu_torch runs one process on one device; a "
-            "multi-process group waits for the port's multi-GPU slice "
-            "(ROADMAP.md queue 1, 'Multi-GPU / multi-process')")
-    device = resolve_device(device)
+    pid, nproc = multihost_info()
+    device = _process_device(device, pid)
     out_dir = cfg.out_dir
     _ensure_dirs(out_dir)
     A = lambda *p: os.path.join(out_dir, *p)  # noqa: E731
+    psuf = f".p{pid}" if nproc > 1 else ""
 
     # tee stage logs into logs/pipeline.log (Snakemake `log:` role)
-    _logf = open(A("logs", "pipeline.log"), "a")
+    _logf = open(A("logs", f"pipeline{psuf}.log"), "a")
     set_log_stream(_Tee(_logf))
     filter_pool = None
     try:
-        _write_config(cfg, A("config.yaml"))
+        log("pipeline", "process %d/%d on %s", pid, nproc, device)
+        if pid == 0:   # the out dir may be shared by the group
+            _write_config(cfg, A("config.yaml"))
 
         # ---- stage: genome (the index is built with the aligner)
-        with Timer("stage/index",
-                   benchmark_file=A("benchmark", "index.benchmark.txt")):
+        with Timer("stage/index", benchmark_file=A(
+                "benchmark", f"index{psuf}.benchmark.txt")):
             genome = Genome.load(cfg.genome_fasta)
             aligner: Optional[TorchBatchAligner] = None
 
         updated_gtf = (cfg.updated_gtf if os.path.isabs(cfg.updated_gtf)
                        else A(cfg.updated_gtf))
         os.makedirs(os.path.dirname(updated_gtf) or ".", exist_ok=True)
-        items = list(cfg.samples.items())
-        # header source for the final unique-gtf: the first sample's SAM
-        first_sam = A("alignment", f"{items[0][0]}.minimap.sam")
+        # the sample shard this process owns (round-robin; all of them in
+        # a single-process run)
+        all_items = list(cfg.samples.items())
+        own = owned_indices(len(all_items))
+        items = [all_items[i] for i in own]
+        # header source for the final unique-gtf: the first sample's SAM,
+        # which process 0 writes (it owns sample 0)
+        first_sam = A("alignment", f"{all_items[0][0]}.minimap.sam")
 
         # ---- phase 1: alignment per sample, sequential on the device; the
         # rb-direct filter of sample N runs on a background thread while
@@ -176,15 +221,12 @@ def run_pipeline(cfg: PipelineConfig,
                     if aligner is None:
                         if getattr(cfg, "index_shards", 1) > 1:
                             # hash-range-sharded table (host lookups)
-                            idx = parallel_module("shard_index").\
-                                ShardedMinimizerIndex.build(
-                                    genome, cfg.index_shards)
+                            idx = ShardedMinimizerIndex.build(
+                                genome, cfg.index_shards)
                         else:
-                            from lr2rmats_tpu.index.minimizer import \
-                                MinimizerIndex
                             cache = cfg.index_cache or (cfg.genome_fasta +
                                                         ".tmmi.npz")
-                            idx = MinimizerIndex.build_or_load(genome, cache)
+                            idx = _load_index(genome, cache, nproc > 1)
                         aligner = TorchBatchAligner(genome, align_params,
                                                     index=idx, device=device)
                         aligner.warmup_chain_shapes()
@@ -318,9 +360,37 @@ def run_pipeline(cfg: PipelineConfig,
         else:
             gtf_novel_paths = [_sample_stages(s, r) for s, r in items]
         filter_pool.shutdown(wait=True)
+        log("pipeline", "process %d/%d: kernel launches %s", pid, nproc,
+            json.dumps(_build.LAUNCHES, sort_keys=True))
 
-        # ---- stage: update_gtf (cross-sample merge); the device gather of
-        # the candidates waits for the multi-GPU slice
+        # ---- cross-process gather: every process contributes its samples'
+        # pass-2 GTFs (the reference's shared-filesystem `cat`); process 0
+        # then holds all of them in global sample order
+        if nproc > 1:
+            payloads = []
+            for gi, p in zip(own, gtf_novel_paths):
+                with open(p, "rb") as f:
+                    payloads.append((gi, f.read()))
+            t0 = time.perf_counter()
+            gathered = gather_indexed_payloads(payloads)
+            log("pipeline", "process %d/%d: gathered %d pass-2 GTFs, %d "
+                "payload bytes, in %.4f s", pid, nproc, len(gathered),
+                sum(len(b) for b in gathered.values()),
+                time.perf_counter() - t0)
+            if pid != 0:
+                barrier("final_merge")
+                log("pipeline", "process %d/%d: sample shard done; updated "
+                    "GTF written by process 0", pid, nproc)
+                return updated_gtf
+            gtf_novel_paths = []
+            for gi, (sample, _) in enumerate(all_items):
+                p = A("gtf", f"{sample}_gtf_novel.gathered.gtf")
+                with open(p, "wb") as f:
+                    f.write(gathered[gi])
+                gtf_novel_paths.append(p)
+
+        # ---- stage: update_gtf (cross-sample merge); one device per
+        # process, so no device gather of the candidates
         with Timer("stage/final_merge",
                    benchmark_file=A("benchmark", "update_gtf.benchmark.txt")):
             tmp = A("gtf", "tmp.gtf")
@@ -332,6 +402,8 @@ def run_pipeline(cfg: PipelineConfig,
             _concat((cfg.gtf, uniq_gtf), tmp)
             sort_gtf_file(tmp, updated_gtf)
             os.remove(tmp)
+        if nproc > 1:
+            barrier("final_merge")
         log("pipeline", "updated GTF written to %s", updated_gtf)
         return updated_gtf
     finally:

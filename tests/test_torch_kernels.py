@@ -15,6 +15,8 @@ counts and seed ranges are integers.
 (tests/test_torch_junction.py, tests/test_torch_pipeline.py).
 """
 
+import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -303,3 +305,187 @@ def test_pipeline_on_card_matches_host_reference(dev, tmp_path, monkeypatch):
         assert _build.LAUNCHES[k] > before[k], k
     assert pipeline_outputs(tmp_path / "port") == \
         pipeline_outputs(tmp_path / "ref")
+
+
+def test_mesh_step_on_card_matches_plain(dev):
+    """sharded_align_step on a world-1 (1, 1) mesh over NCCL: 128
+    minimizers x 4 hits = 512 anchors a read (the kernel's limit), one
+    chain kernel launch, the plain DP's scores exactly."""
+    import socket
+
+    import torch.distributed as dist
+    from lr2rmats_tpu_torch.parallel.distributed import backend
+    from lr2rmats_tpu_torch.parallel.mesh import (make_mesh,
+                                                  sharded_align_step)
+    rng = np.random.default_rng(13)
+    M, B, Q = 8192, 64, 128
+    h = np.sort(rng.choice(2 ** 31, M, replace=False)).astype(np.uint32)
+    pos = np.sort(rng.integers(0, 10 ** 6, M)).astype(np.int32)
+    start = rng.integers(0, M - Q, B)
+    rh = h[start[:, None] + np.arange(Q)]
+    rq = (pos[start[:, None] + np.arange(Q)] - pos[start][:, None] +
+          rng.integers(0, 3, (B, Q))).astype(np.int32)
+    rh[:, ::7] = rng.choice(h, (B, len(range(0, Q, 7))))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(backend(), init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1, "cuda")
+        before = _build.LAUNCHES["chain_dp_backtrack"]
+        got = sharded_align_step(mesh)(h, pos, rh, rq)
+        assert _build.LAUNCHES["chain_dp_backtrack"] == before + 1
+        want = sharded_align_step(mesh, plain=True)(h, pos, rh, rq)
+        assert got.device.type == "cuda" and torch.equal(got, want)
+        assert float(want.max()) > 100.0
+    finally:
+        dist.destroy_process_group()
+
+
+_MESH_RANK = r"""
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from lr2rmats_tpu_torch.ops import _build
+from lr2rmats_tpu_torch.parallel import distributed as d
+from lr2rmats_tpu_torch.parallel.mesh import make_mesh, sharded_align_step
+pid, nproc, coord, data, out, dev_type = sys.argv[1:7]
+pid, nproc = int(pid), int(nproc)
+if dev_type == "cuda":
+    torch.cuda.set_device(pid % torch.cuda.device_count())
+if nproc > 1:
+    d.init_multihost(coord, nproc, pid)
+else:
+    dist.init_process_group("gloo", init_method=f"tcp://{coord}",
+                            world_size=1, rank=0)
+n = 2 if nproc == 4 else 1
+mesh = make_mesh(n, n, dev_type)
+z = np.load(data)
+args = [z[k] for k in ("h", "pos", "rh", "rq")]
+got = sharded_align_step(mesh)(*args)
+launches = _build.LAUNCHES["chain_dp_backtrack"]
+want = sharded_align_step(mesh, plain=True)(*args)
+np.savez(f"{out}.{pid}.npz", got=got.cpu().numpy(), want=want.cpu().numpy())
+with open(f"{out}.{pid}.json", "w") as f:
+    json.dump({"launches": launches, "device": str(got.device)}, f)
+dist.destroy_process_group()
+"""
+
+
+def _mesh_step_data(path):
+    """Anchors that chain: reads take runs of consecutive index entries
+    whose positions ascend; every 7th minimizer is a random hit."""
+    rng = np.random.default_rng(17)
+    M, B, Q = 8192, 64, 64
+    h = np.sort(rng.choice(2 ** 31, M, replace=False)).astype(np.uint32)
+    pos = np.sort(rng.integers(0, 10 ** 6, M)).astype(np.int32)
+    start = rng.integers(0, M - Q, B)
+    rh = h[start[:, None] + np.arange(Q)]
+    rq = (pos[start[:, None] + np.arange(Q)] - pos[start][:, None] +
+          rng.integers(0, 3, (B, Q))).astype(np.int32)
+    rh[:, ::7] = rng.choice(h, (B, len(range(0, Q, 7))))
+    np.savez(path, h=h, pos=pos, rh=rh, rq=rq)
+
+
+def test_mesh_step_multi_rank_nccl(dev, tmp_path):
+    """sharded_align_step on a (2, 2) mesh of four cards over NCCL (one
+    rank per card): every rank's kernel scores equal its plain DP's
+    exactly, and the scores of a world-1 CPU (gloo) run at rtol 1e-5."""
+    import socket
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: NCCL refuses two ranks on one card")
+    data = tmp_path / "data.npz"
+    _mesh_step_data(data)
+    script = tmp_path / "rank.py"
+    script.write_text(_MESH_RANK)
+    ports = []
+    for _ in range(2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports.append(s.getsockname()[1])
+    out = str(tmp_path / "res")
+    cpu_out = str(tmp_path / "cpu")
+    cmds = [[sys.executable, str(script), str(pid), "4",
+             f"127.0.0.1:{ports[0]}", str(data), out, "cuda"]
+            for pid in range(4)]
+    cmds.append([sys.executable, str(script), "0", "1",
+                 f"127.0.0.1:{ports[1]}", str(data), cpu_out, "cpu"])
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    procs = [subprocess.Popen(c, cwd=str(REPO), env=env, text=True,
+                              stderr=subprocess.PIPE) for c in cmds]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), [e[-2000:] for e in errs]
+    ref = np.load(f"{cpu_out}.0.npz")["want"]
+    devices = set()
+    for pid in range(4):
+        z = np.load(f"{out}.{pid}.npz")
+        with open(f"{out}.{pid}.json") as f:
+            info = json.load(f)
+        np.testing.assert_array_equal(z["got"], z["want"])
+        np.testing.assert_allclose(z["got"], ref, rtol=1e-5)
+        assert info["launches"] == 1
+        devices.add(info["device"])
+    assert devices == {f"cuda:{i}" for i in range(4)}
+    assert ref.max() > 100.0
+
+
+def test_pipeline_two_processes_two_cards(dev, tmp_path):
+    """`python -m lr2rmats_tpu_torch run` as two processes of one group,
+    one per card (cuda:{process_id % device_count}), with the three device
+    switches: the reference host pipeline's outputs, byte for byte."""
+    import socket
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from lr2rmats_tpu.pipeline.config import PipelineConfig
+    from lr2rmats_tpu_torch._reference import parallel_module
+    parallel_module("distributed")  # the reference pipeline imports it
+    from lr2rmats_tpu.pipeline.stages import run_pipeline as ref_pipeline
+    data = sim_dataset(tmp_path / "data")
+    with open(data / "long.fa") as f:
+        lines = f.read().splitlines(keepends=True)
+    heads = [i for i, ln in enumerate(lines) if ln.startswith(">")]
+    cut = heads[len(heads) // 2]
+    for name, part in (("a", lines[:cut]), ("b", lines[cut:])):
+        (tmp_path / f"long_{name}.fa").write_text("".join(part))
+    shorts = f"{data}/short_1.fa {data}/short_2.fa"
+    (tmp_path / "long.list").write_text(
+        f"2\n1\n{tmp_path}/long_a.fa\n1\n{tmp_path}/long_b.fa\n")
+    (tmp_path / "short.list").write_text(f"2\n1\n{shorts}\n1\n{shorts}\n")
+    lists = [f"{data}/genome.fa", f"{data}/anno.gtf",
+             str(tmp_path / "long.list"), str(tmp_path / "short.list")]
+    cfg = PipelineConfig.from_read_lists(*lists)
+    cfg.out_dir = str(tmp_path / "ref")
+    ref_pipeline(cfg, use_tpu=False)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    env = {**os.environ, "PYTHONPATH": str(REPO),
+           "LR2RMATS_DEVICE_JUNCTIONS": "1", "LR2RMATS_DEVICE_SEED": "1",
+           "LR2RMATS_DEVICE_SJCOUNT": "1"}
+    out = tmp_path / "port"
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "lr2rmats_tpu_torch", "run", "--genome",
+         lists[0], "--gtf", lists[1], "--long-read-list", lists[2],
+         "--short-read-list", lists[3], "--out-dir", str(out),
+         "--coordinator", coord, "--num-processes", "2", "--process-id",
+         str(pid)], cwd=str(REPO), env=env, stderr=subprocess.PIPE,
+        text=True) for pid in range(2)]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), [e[-2000:] for e in errs]
+    want = {f.name: f.read_bytes() for f in (tmp_path / "ref" /
+                                                  "output").iterdir()}
+    got = {f.name: f.read_bytes() for f in (out / "output").iterdir()}
+    assert len(want) == 15 and got == want
+    for pid in range(2):
+        log = (out / "logs" / f"pipeline.p{pid}.log").read_text()
+        assert f"process {pid}/2 on cuda:{pid}" in log

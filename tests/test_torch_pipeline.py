@@ -99,7 +99,7 @@ def test_cli_refuses_multi_process(tmp_path, capsys):
     rc = main(["run", "--cpu", "--num-processes", "2", "--out-dir",
                str(tmp_path)])
     assert rc == 1
-    assert "multi-GPU" in capsys.readouterr().err
+    assert "needs --coordinator and --process-id" in capsys.readouterr().err
 
 
 def test_cli_delegates_host_subcommands(capsys):
