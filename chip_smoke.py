@@ -40,7 +40,7 @@ exits non-zero):
   7. multi-process: (a) a world-1 process group (gloo for the CPU, NCCL for
      the card) and make_mesh(1, 1, "cuda"); sharded_align_step on the bench
      index and the first batch's reads (Q=128 minimizers, 4 hits per seed,
-     so 512 anchors per read, the chain kernel's limit) equals the same
+     so 512 anchors per read; its DP is the DP-only kernel) equals the same
      step over the plain chain DP exactly; (b) phase 6's long reads split
      into two samples (halves, each with all short pairs) through two
      `python -m lr2rmats_tpu_torch run` processes of one group on the card
@@ -51,10 +51,24 @@ exits non-zero):
      each in lockstep through the collective lookup with
      TorchBatchAligner(device="cuda"); the primaries equal the
      single-process full-index host run.  Both processes of (b) and (c)
-     share the one card; their payloads travel over gloo.
-Launch counts are set to 0 before each of phases 4-7 and read after (the
-processes of 7b and 7c start at 0 and report theirs); every kernel must
-have been launched by one of them.  Then one JSON line with the kernels,
+     share the one card; their payloads travel over gloo;
+  8. the DP-only chain kernel, the diagnostic and the one-process split:
+     chain_dp against its plain version, exact, on the first batch's A=128
+     rows, on the rows 7a chained (A=512) and on random rows at A=1024
+     (B=256) and A=4096 (B=32), and against the fused kernel's f / parent
+     where A <= 512; the log probe against its plain version, bit for bit;
+     the chain-parity diagnostic (python -m
+     lr2rmats_tpu_torch.diag.chain_parity) on the card; the bench workload
+     through TorchBatchAligner(backend="pallas") (every row through
+     chain_dp, host backtrack), SAM identical to the host backend; the mesh
+     step at 8 hits per seed (1024 anchors per read) against the plain
+     step, exact; and the bench workload and phase 6's final merge with
+     devices=[cuda:0, cuda:0], each identical to the unsplit run (on one
+     card this exercises the row split and the gather, not a second card).
+Launch counts are set to 0 before each path run of phases 4-8 (slices,
+pipeline, mesh steps, diagnostic) and read after it (the processes of 7b
+and 7c start at 0 and report theirs); every kernel must have been launched
+by one of them.  Then one JSON line with the kernels,
 and the last line {"ok": true, "device": {...}}.  Work files go under
 build/chip_smoke/.
 
@@ -83,8 +97,10 @@ COMBINE_MIN_G = 2048
 HAMMING_C, HAMMING_L = 131072, 150
 SWITCHES = ("LR2RMATS_DEVICE_JUNCTIONS", "LR2RMATS_DEVICE_SEED",
             "LR2RMATS_DEVICE_SJCOUNT")
-PATH_KERNELS = ("chain_dp_backtrack", "shift_dp", "combine", "hamming")
-MESH_READS, MESH_Q, MESH_H = 1536, 128, 4
+PATH_KERNELS = ("chain_dp_backtrack", "chain_dp", "shift_dp", "combine",
+                "hamming", "log_probe")
+MESH_READS, MESH_Q, MESH_H, MESH_H_WIDE = 1536, 128, 4, 8
+CHAIN_DP_RANDOM = ((1024, 256), (4096, 32))      # (A, B)
 LOOKUP_READS, LOOKUP_BATCH = 768, 256
 GROUP_TIMEOUT_S = 300
 
@@ -134,6 +150,20 @@ def card_line():
     return res.stdout.strip().splitlines()[0]
 
 
+def batch_rows(prep, A, C, rng):
+    """(qpos, rpos, n, rows of the batch): the first-batch rows of the
+    A-anchor chunk, the rest of C rows random."""
+    real = next((c for c in prep["chunks"] if c[1] == A), None)
+    qp, gp, nn = random_anchor_rows(rng, C, A)
+    n_real = 0
+    if real is not None:
+        n_real = len(real[0])
+        qp[:n_real], gp[:n_real], nn[:n_real] = (real[2][:n_real],
+                                                 real[3][:n_real],
+                                                 real[4][:n_real])
+    return qp, gp, nn, n_real
+
+
 def check_chain(aligner, first_batch, dev):
     """Chain kernel == plain version at the main-path chunk shapes."""
     import torch
@@ -147,14 +177,7 @@ def check_chain(aligner, first_batch, dev):
     rng = np.random.default_rng(SEED)
     worst, times = 0.0, {}
     for A, C in CHAIN_SHAPES:
-        real = next((c for c in prep["chunks"] if c[1] == A), None)
-        qp, gp, nn = random_anchor_rows(rng, C, A)
-        n_real = 0
-        if real is not None:
-            n_real = len(real[0])
-            qp[:n_real], gp[:n_real], nn[:n_real] = (real[2][:n_real],
-                                                     real[3][:n_real],
-                                                     real[4][:n_real])
+        qp, gp, nn, n_real = batch_rows(prep, A, C, rng)
         q, g, n = (torch.from_numpy(a).to(dev) for a in (qp, gp, nn))
         mask, ps, ss, f, parent = chain_dp_backtrack(q, g, n, kp, min_score,
                                                      dp_out=True)
@@ -458,7 +481,8 @@ def stage_walls(out):
 
 def run_pipeline_phase(here, dev, card):
     """scripts/simulate.py at its defaults; the port's CLI with the three
-    device switches; the reference's host pipeline; byte comparison."""
+    device switches; the reference's host pipeline; byte comparison.
+    Returns (launches, the data files, the port's out dir)."""
     import torch
     from lr2rmats_tpu.index.minimizer import MinimizerIndex
     from lr2rmats_tpu.io.fasta import Genome
@@ -532,7 +556,7 @@ def run_pipeline_phase(here, dev, card):
     say("pipeline", json.dumps(line))
     say("pipeline", f"port {port_s:.2f} s (reference host {ref_s:.2f} s), "
         f"{len(got)} files byte-identical, launches {launches}")
-    return launches
+    return launches, files, port_out
 
 
 def free_port() -> int:
@@ -588,12 +612,14 @@ def mesh_reads(aligner, reads):
     return rh, rq
 
 
-def check_mesh_step(aligner, reads, dev, card):
-    """7a: sharded_align_step on a (1, 1) card mesh, kernel against the
-    plain chain DP; returns (launches, max_abs_err)."""
+def check_mesh_step(aligner, reads, dev, card, hits):
+    """sharded_align_step on a (1, 1) card mesh with `hits` hits per seed,
+    kernel against the plain chain DP; returns (launches, max_abs_err,
+    chain_dp ms, the anchor rows (qpos, rpos, n) the step chained)."""
     import torch
     import torch.distributed as dist
     from lr2rmats_tpu_torch.ops import _build
+    from lr2rmats_tpu_torch.parallel import mesh as mesh_mod
     from lr2rmats_tpu_torch.parallel.distributed import backend
     from lr2rmats_tpu_torch.parallel.mesh import (make_mesh,
                                                   sharded_align_step)
@@ -608,9 +634,20 @@ def check_mesh_step(aligner, reads, dev, card):
                             world_size=1, rank=0)
     try:
         mesh = make_mesh(1, 1, "cuda")
-        step = sharded_align_step(mesh, aligner.p.chain, MESH_H)
-        plain = sharded_align_step(mesh, aligner.p.chain, MESH_H, plain=True)
-        step(idx_hash, idx_pos, rh, rq)             # warm-up
+        step = sharded_align_step(mesh, aligner.p.chain, hits)
+        plain = sharded_align_step(mesh, aligner.p.chain, hits, plain=True)
+        rows = []
+        real_dp = mesh_mod.chain_dp
+
+        def record(*a):
+            rows.append(tuple(t.clone() for t in a[:3]))
+            return real_dp(*a)
+
+        mesh_mod.chain_dp = record                  # warm-up, rows kept
+        try:
+            step(idx_hash, idx_pos, rh, rq)
+        finally:
+            mesh_mod.chain_dp = real_dp
         torch.cuda.synchronize(dev)
         _build.reset_launches()
         with _build.timing() as kernel_ms:
@@ -629,22 +666,26 @@ def check_mesh_step(aligner, reads, dev, card):
         plain_ms = cuda_ms(lambda: plain(idx_hash, idx_pos, rh, rq), 1)
     finally:
         dist.destroy_process_group()
-    line = {"reads": len(reads), "Q": MESH_Q, "hits_per_seed": MESH_H,
-            "anchors_per_read": MESH_Q * MESH_H,
+    n_anchor = rows[0][2]
+    line = {"reads": len(reads), "Q": MESH_Q, "hits_per_seed": hits,
+            "anchors_per_read": MESH_Q * hits,
+            "valid_anchors_max": int(n_anchor.max()),
+            "valid_anchors_mean": float(n_anchor.float().mean()),
             "index_entries": len(idx_hash), "exact": same,
             "max_abs_err": err, "reads_with_anchors": int(fin.sum()),
             "score_max": float(want.max()),
-            "chain_kernel_ms": kernel_ms.get("chain_dp_backtrack", 0.0),
+            "chain_kernel_ms": kernel_ms.get("chain_dp", 0.0),
             "step_ms": step_ms, "plain_step_ms": plain_ms,
             "step_wall_s": wall, "launches": launches, "card": card}
-    say("multi", "mesh step " + json.dumps(line))
+    say("multi" if hits == MESH_H else "split", "mesh step " +
+        json.dumps(line))
     if not same:
         b = int(torch.nonzero(got != want)[0])
         raise AssertionError(f"mesh step: kernel score {got[b].item()} != "
                              f"plain {want[b].item()} at read {b}")
-    if launches["chain_dp_backtrack"] == 0:
-        raise AssertionError("the mesh step did not launch the chain kernel")
-    return launches, err
+    if launches["chain_dp"] == 0:
+        raise AssertionError("the mesh step did not launch chain_dp")
+    return launches, err, kernel_ms.get("chain_dp", 0.0), rows[0]
 
 
 def log_launches(path):
@@ -828,6 +869,144 @@ def run_sharded_lookup(here, genome, full, names, reads, n_reads, card):
     return [r["launches"] for r in res]
 
 
+def check_chain_dp(aligner, first_batch, mesh_rows, dev):
+    """8: chain_dp == its plain version on the first batch's A=128 rows
+    (phase 3's chunk), the rows 7a chained and random rows at
+    CHAIN_DP_RANDOM, and == the fused kernel's f / parent where A <=
+    K_MAX_A; returns (max_abs_err, {label: (ms, plain_ms)})."""
+    import torch
+    from lr2rmats_tpu_torch.ops.chain import (K_MAX_A, chain_dp,
+                                              chain_dp_backtrack,
+                                              chain_dp_reference,
+                                              chain_params_for_kernel)
+    kp = chain_params_for_kernel(aligner.p.chain)
+    prep = aligner._prepare_dispatch(aligner._batch_anchors(first_batch))
+    rng = np.random.default_rng(SEED)
+    A0, C0 = CHAIN_SHAPES[0]
+    qp, gp, nn, n_real = batch_rows(prep, A0, C0, rng)
+    cases = [(f"first batch A={A0} B={C0} ({n_real} workload rows)",
+              (qp, gp, nn))]
+    mq, mg, mn = (t.cpu().numpy() for t in mesh_rows)
+    cases.append((f"7a mesh rows A={mq.shape[1]} B={len(mn)}", (mq, mg, mn)))
+    rng = np.random.default_rng(SEED + 5)
+    for A, B in CHAIN_DP_RANDOM:
+        cases.append((f"random A={A} B={B}", random_anchor_rows(rng, B, A)))
+    worst, times = 0.0, {}
+    for label, arrays in cases:
+        q, g, n = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                   for a in arrays)
+        A = q.shape[1]
+        f, parent = chain_dp(q, g, n, kp)
+        rf, rparent = chain_dp_reference(q, g, n, kp)
+        torch.cuda.synchronize(dev)
+        valid = torch.arange(A, device=dev)[None, :] < n[:, None]
+        err = float((f - rf)[valid].abs().max()) if bool(valid.any()) \
+            else 0.0
+        worst = max(worst, err)
+        same = torch.equal(f, rf) and torch.equal(parent, rparent)
+        fused = "not run (A > 512, the fused kernel's cap)"
+        fused_same = True
+        if A <= K_MAX_A:
+            ff, fparent = chain_dp_backtrack(q, g, n, kp, aligner.p.min_score,
+                                             dp_out=True)[3:]
+            fused_same = torch.equal(f, ff) and torch.equal(parent, fparent)
+            fused = str(fused_same)
+        ms = cuda_ms(lambda: chain_dp(q, g, n, kp), 20)
+        plain_ms = cuda_ms(lambda: chain_dp_reference(q, g, n, kp), 1)
+        times[label] = (ms, plain_ms)
+        say("dp", f"chain_dp {label}: {int(n.sum())} anchors (widest row "
+            f"{int(n.max())}); exact vs plain={same} max_abs_err={err}; "
+            f"f / parent equal to chain_dp_backtrack: {fused}; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.2f} ms")
+        if not (same and fused_same):
+            bad = (f != rf).any(1) | (parent != rparent).any(1)
+            b = int(torch.nonzero(bad)[0]) if bool(bad.any()) else -1
+            raise AssertionError(f"chain_dp disagrees ({label}) at row {b}")
+    return worst, times
+
+
+def check_log_probe(dev):
+    """8: the log probe kernel == its plain version (and its log2f row ==
+    torch.log2), bit for bit, over the diagnostic's sample; returns
+    (max_abs_err, (ms, plain_ms))."""
+    import torch
+    from lr2rmats_tpu_torch.diag.chain_parity import (log_probe,
+                                                      log_probe_reference,
+                                                      probe_sample)
+    from lr2rmats_tpu_torch.ops import _build
+    x = torch.from_numpy(probe_sample()[1]).to(dev)
+    y, want = log_probe(x), log_probe_reference(x)
+    same = torch.equal(y, want) and torch.equal(log_probe(x, log2=True),
+                                                torch.log2(x))
+    fin = torch.isfinite(want)       # the zero padding gives -inf in both
+    err = float((y - want)[fin].abs().max())
+    ms = cuda_ms(lambda: log_probe(x), 20)
+    plain_ms = cuda_ms(lambda: log_probe_reference(x), 20)
+    with _build.timing() as ev:     # events on the stream around each launch
+        for _ in range(20):
+            log_probe(x)
+    say("diag", f"log_probe x [{x.shape[0]}, {x.shape[1]}]: exact={same} "
+        f"max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"(20 back-to-back calls each; between the events around each "
+        f"launch {ev['log_probe'] / 20:.4f} ms)")
+    if not same:
+        raise AssertionError("log_probe disagrees with its plain version")
+    return err, (ms, plain_ms)
+
+
+def run_diag(dev):
+    """8: `python -m lr2rmats_tpu_torch.diag.chain_parity` on the card (its
+    main, in this process); returns its kernel launches."""
+    from lr2rmats_tpu_torch.diag import chain_parity
+    from lr2rmats_tpu_torch.ops import _build
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rc = chain_parity.main(["--device", "cuda"])
+    launches = dict(_build.LAUNCHES)
+    say("diag", f"chain_parity exited {rc} in {time.perf_counter() - t0:.1f} "
+        f"s; launches {launches}")
+    if rc != 0 or not (launches["chain_dp"] and launches["log_probe"]):
+        raise AssertionError("the chain-parity diagnostic failed")
+    return launches
+
+
+def widest_row(al, reads):
+    """Anchors of the widest row backend="pallas" chains on `reads`."""
+    from lr2rmats_tpu.align.batch import DEFAULT_BATCH
+    return max(int(nn.max()) for off in range(0, len(reads), DEFAULT_BATCH)
+               for _, _, _, nn in al._prepare_dispatch(al._batch_anchors(
+                   reads[off: off + DEFAULT_BATCH]))["dp"])
+
+
+def rerun_final_merge(files, port_out, dev):
+    """8: phase 6's pipeline run again in its out dir with devices=[dev,
+    dev]: every stage is fresh but the final merge, whose unique-gtf now
+    gathers its candidates over the two devices; updated.gtf and uniq.gtf
+    must not change."""
+    from lr2rmats_tpu.pipeline.config import PipelineConfig, SampleReads
+    from lr2rmats_tpu_torch.pipeline.stages import run_pipeline
+    outs = [os.path.join(port_out, "output", "updated.gtf"),
+            os.path.join(port_out, "gtf", "uniq.gtf")]
+    before = [open(p, "rb").read() for p in outs]
+    cfg = PipelineConfig(genome_fasta=files["genome"], gtf=files["gtf"])
+    cfg.samples["samp1"] = SampleReads(files["long"], files["s1"],
+                                       files["s2"])
+    cfg.out_dir = port_out
+    t0 = time.perf_counter()
+    run_pipeline(cfg, device=dev, devices=[dev, dev])
+    wall = time.perf_counter() - t0
+    with open(os.path.join(port_out, "logs", "pipeline.log")) as f:
+        split = f"split over {dev}, {dev}" in f.read()
+    same = [open(p, "rb").read() == b for p, b in zip(outs, before)]
+    say("split", f"final merge with devices=[{dev}, {dev}]: "
+        f"updated.gtf and uniq.gtf identical to the unsplit run: {same} "
+        f"({len(before[1])} bytes of unique transcripts); rerun "
+        f"{wall:.2f} s with every other stage fresh")
+    if not (split and all(same)):
+        raise AssertionError("the final merge over two devices changed its "
+                             "output")
+
+
 def first_diff(a: bytes, b: bytes) -> str:
     la, lb = a.split(b"\n"), b.split(b"\n")
     for i, (x, y) in enumerate(zip(la, lb)):
@@ -994,35 +1173,92 @@ def main(argv=None) -> int:
 
     # 6. pipeline
     t_phase = time.perf_counter()
-    path_launches.append(run_pipeline_phase(here, dev, card))
+    pipe_launches, pipe_files, pipe_out = run_pipeline_phase(here, dev, card)
+    path_launches.append(pipe_launches)
     say("pipeline", f"phase wall {time.perf_counter() - t_phase:.1f} s")
 
     # 7. multi-process: mesh step, 2-process pipeline, sharded lookup
     t_phase = time.perf_counter()
-    mesh_launches, mesh_err = check_mesh_step(
-        aligner, reads[:MESH_READS], dev, card)
+    mesh_launches, mesh_err, _, mesh_rows = check_mesh_step(
+        aligner, reads[:MESH_READS], dev, card, MESH_H)
     path_launches.append(mesh_launches)
     path_launches.extend(run_two_process_pipeline(here, card))
     path_launches.extend(run_sharded_lookup(here, genome, aligner.index,
                                             names, reads, args.reads, card))
     say("multi", f"phase wall {time.perf_counter() - t_phase:.1f} s")
 
+    # 8. DP-only chain kernel, diagnostic, backend="pallas", split
+    t_phase = time.perf_counter()
+    dp_err, dp_t = check_chain_dp(aligner, reads[:1536], mesh_rows, dev)
+    probe_err, probe_t = check_log_probe(dev)
+    path_launches.append(run_diag(dev))
+    al_p = TorchBatchAligner(genome, index=aligner.index, device="cuda",
+                             junction_backend="host", seed_lookup=False,
+                             backend="pallas")
+    al_p.warmup_chain_shapes()
+    al_p.align_batch(names[:64], reads[:64])
+    _, _, wall_p, launches_p, kernel_ms_p, st_p, _ = align_slice(
+        "slice pallas", al_p, seqset, sam_ref, dev)
+    if not (launches_p["chain_dp"] and launches_p["shift_dp"]) or \
+            launches_p["chain_dp_backtrack"]:
+        raise AssertionError(f"backend=pallas launches {launches_p}")
+    path_launches.append(launches_p)
+    say("pallas", json.dumps({
+        "reads": len(reads), "wall_s": wall_p,
+        "reads_per_s": len(reads) / wall_p,
+        "sam_identical_to_host_backend": True,
+        "widest_row_anchors": widest_row(al_p, reads),
+        "launches": launches_p, "kernel_ms": kernel_ms_p,
+        "host_phases_s": {k[:-2]: st_p.get(k, 0.0) for k in
+                          ("seed_s", "dispatch_s", "build_s", "polish_s")},
+        "card": card}))
+    wide_launches, wide_err, _, _ = check_mesh_step(
+        aligner, reads[:MESH_READS], dev, card, MESH_H_WIDE)
+    path_launches.append(wide_launches)
+    al_s = TorchBatchAligner(genome, index=aligner.index, device="cuda",
+                             junction_backend="host", seed_lookup=False,
+                             devices=[dev, dev])
+    al_s.warmup_chain_shapes()
+    al_s.align_batch(names[:64], reads[:64])
+    _, _, wall_s, launches_s, _, _, _ = align_slice(
+        "slice split", al_s, seqset, sam_ref, dev)
+    if launches_s["chain_dp_backtrack"] != \
+            2 * launches["chain_dp_backtrack"]:
+        raise AssertionError(f"the split slice launched {launches_s}, not "
+                             "twice slice 1's chain launches")
+    path_launches.append(launches_s)
+    say("split", f"bench slice with devices=[{dev}, {dev}]: SAM identical "
+        f"to the host backend and to slice 1; chain launches "
+        f"{launches_s['chain_dp_backtrack']} = 2 x slice 1's "
+        f"{launches['chain_dp_backtrack']}; {len(reads) / wall_s:.1f} "
+        f"reads/s (one card twice: this exercises the row split and the "
+        f"gather, not a second card)")
+    rerun_final_merge(pipe_files, pipe_out, dev)
+    say("split", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+
     total = {k: sum(pl[k] for pl in path_launches) for k in PATH_KERNELS}
     for name, n in total.items():
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched by a "
-                                 "slice, pipeline or multi-process phase")
+                                 "path run of phases 4-8")
 
     chain_ms, chain_plain = chain_t[CHAIN_SHAPES[0]]
     shift_ms, shift_plain = shift_t[SHIFT_SHAPES[1][:3]]
+    dp_ms, dp_plain = next(iter(dp_t.values()))     # first batch, A=128
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": "chain_dp_backtrack", "route": "cuda",
          "source": "lr2rmats_tpu_torch/csrc/chain.cu",
          "replaces": "lr2rmats_tpu/ops/chain_pallas.py:39",
          "launches": total["chain_dp_backtrack"],
-         "max_abs_err": max(chain_err, mesh_err), "ms": chain_ms,
+         "max_abs_err": chain_err, "ms": chain_ms,
          "plain_ms": chain_plain},
+        {"name": "chain_dp", "route": "cuda",
+         "source": "lr2rmats_tpu_torch/csrc/chain_dp.cu",
+         "replaces": "lr2rmats_tpu/ops/chain_pallas.py:39",
+         "launches": total["chain_dp"],
+         "max_abs_err": max(dp_err, mesh_err, wide_err), "ms": dp_ms,
+         "plain_ms": dp_plain},
         {"name": "shift_dp", "route": "cuda",
          "source": "lr2rmats_tpu_torch/csrc/shift_dp.cu",
          "replaces": "lr2rmats_tpu/ops/splice_device.py:295",
@@ -1038,6 +1274,12 @@ def main(argv=None) -> int:
          "replaces": "lr2rmats_tpu/junctions/sjcount_device.py:69",
          "launches": total["hamming"],
          "max_abs_err": ham_err, "ms": ham_t[0], "plain_ms": ham_t[1]},
+        {"name": "log_probe", "route": "cuda",
+         "source": "lr2rmats_tpu_torch/csrc/log_probe.cu",
+         "replaces": "scripts/diag_chain_pallas.py:98",
+         "launches": total["log_probe"],
+         "max_abs_err": probe_err, "ms": probe_t[0],
+         "plain_ms": probe_t[1]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

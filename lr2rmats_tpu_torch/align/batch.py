@@ -6,7 +6,9 @@ extraction, anchor clustering, the native chain of small rows, splice-aware
 extension, RecordBatch assembly and SAM.  The device paths are the port's:
 
   * the chain dispatch runs the fused chain DP + backtrack kernel
-    (ops/chain.py);
+    (ops/chain.py `chain_dp_backtrack`), or with backend="pallas" the
+    DP-only kernel at any row width (`chain_dp`) and the reference's host
+    backtrack;
   * the junction polish runs its placement DP on the shift-DP kernel
     (align/polish.py);
   * with the device junction backend (`junction_backend="device"`, or
@@ -21,6 +23,16 @@ native small-row chain and on the host: rows of at most A_BUCKETS[0]
 anchors chain natively; rows over A_BUCKETS[-1] anchors, with more than
 EXC_ROWS reference deltas >= 2^16, or with query positions >= 2^16 chain on
 the host; the rest go to the card in fixed CHAIN_CHUNK chunks per bucket.
+backend="pallas" mirrors the reference's backend of that name
+(batch.py:879-902): every row, in chunks of PALLAS_CHUNK rows at the next
+power of two of the chunk's widest row, goes to the DP-only kernel, and
+align/chain.py `backtrack` runs on each row's f / parent in float64.
+
+With several `devices` (cards of this process) each chain launch is split
+into contiguous row blocks, one per card, as the reference shards its
+chain dispatch over its local devices (ops/chain.py `split_rows`); the
+outputs are the same.  Seeding lookups, junctions and polish run on
+`device`.
 
 Dropped with respect to the reference, which needed them only to survive
 a remote TPU link: the weather router, the device-failure fallbacks (a
@@ -35,7 +47,7 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -52,7 +64,9 @@ from lr2rmats_tpu.utils import default_threads, log
 from ..device import resolve_device
 from ..index.seed_device import TorchSeedLookup
 from ..ops import _build
-from ..ops.chain import chain_dp_backtrack, chain_params_for_kernel
+from ..ops.chain import (DP_MIN_ROWS, FUSED_MIN_ROWS, chain_dp,
+                         chain_dp_backtrack, chain_params_for_kernel,
+                         gather_rows, launch_rows)
 from ..ops.junction import (B_DEF as JUNCTION_BAND, MGAP, cell_ops, combine,
                             junction_batch, prepare_junction_batch)
 from ..ops.splice import shift_dp
@@ -70,6 +84,33 @@ EXC_ROWS = 8
 _JUNCTION_ENV = ("1", "scan", "pallas")
 # junction slots per candidate of the native collect pass
 _GSTRIDE = 64
+# rows per DP-only chain launch of backend="pallas" (reference batch.py:882)
+PALLAS_CHUNK = 512
+BACKENDS = ("torch", "pallas")
+
+
+def _pack_rows(rows: List[_Row], part, A: int, B: int):
+    """(qpos, cluster-relative rpos, n) int32 arrays [B, A] / [B] of the
+    rows `part`, zero-padded."""
+    qp = np.zeros((B, A), np.int32)
+    gp = np.zeros((B, A), np.int32)
+    nn = np.zeros(B, np.int32)
+    ns = np.array([len(rows[i].qpos) for i in part], np.int64)
+    nn[:len(part)] = ns
+    rowrep = np.repeat(np.arange(len(part)), ns)
+    offs = np.zeros(len(part) + 1, np.int64)
+    np.cumsum(ns, out=offs[1:])
+    col = np.arange(offs[-1]) - np.repeat(offs[:-1], ns)
+    if len(part):
+        qp[rowrep, col] = np.concatenate([rows[i].qpos for i in part])
+        gp[rowrep, col] = (np.concatenate([rows[i].gpos for i in part]) -
+                           np.repeat(np.array([rows[i].base for i in part],
+                                              np.int64), ns))
+    return qp, gp, nn
+
+
+def _chain_launches() -> int:
+    return _build.LAUNCHES["chain_dp_backtrack"] + _build.LAUNCHES["chain_dp"]
 
 
 def _decode(out, part, nn, A, mask, ps, ss) -> None:
@@ -96,21 +137,35 @@ class TorchBatchAligner(BatchAligner):
     def __init__(self, genome, params=None, index=None, device="cuda",
                  n_threads: Optional[int] = None,
                  junction_backend: Optional[str] = None,
-                 seed_lookup: Optional[bool] = None):
+                 seed_lookup: Optional[bool] = None,
+                 backend: str = "torch",
+                 devices: Optional[Sequence] = None):
         """junction_backend: "host" (inline in the native extension) or
         "device" (ops/junction.py); None reads LR2RMATS_DEVICE_JUNCTIONS.
         seed_lookup: index lookup on the device (when the index supports
         it); None reads LR2RMATS_DEVICE_SEED=1.
+        backend: "torch" (the fused chain kernel in the reference's row
+        routing) or "pallas" (every row through the DP-only kernel, host
+        backtrack).
+        devices: the devices each chain launch is split over; default
+        [device].
 
         The reference constructor is not called: it would build its JAX
         seed table under LR2RMATS_DEVICE_SEED=1.  This sets the state that
         the inherited host methods read."""
         self.device = resolve_device(device)
+        self.devices = ([self.device] if devices is None else
+                        [resolve_device(d) for d in devices])
+        if not self.devices:
+            raise ValueError("devices must name at least one device")
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got "
+                             f"{backend!r}")
+        self.backend = backend
         self.inner = SpliceAligner(genome, params, index)
         self.p = self.inner.p
         self.index = self.inner.index
         self.refs = self.inner.refs
-        self.backend = "torch"
         if junction_backend is None:
             junction_backend = (
                 "device" if os.environ.get("LR2RMATS_DEVICE_JUNCTIONS")
@@ -141,15 +196,19 @@ class TorchBatchAligner(BatchAligner):
                 "junction_calls": 0, "junction_gaps": 0, "junction_found": 0}
 
     @classmethod
-    def from_jax_aligner(cls, al: BatchAligner, device="cuda"
+    def from_jax_aligner(cls, al: BatchAligner, device="cuda",
+                         devices: Optional[Sequence] = None
                          ) -> "TorchBatchAligner":
         """A port aligner sharing `al`'s AlignParams / ChainParams and its
-        MinimizerIndex object, with its junction backend and its choice of
-        device seed lookup."""
+        MinimizerIndex object, with its junction backend, its choice of
+        device seed lookup and its chain backend ("pallas" stays "pallas";
+        "jax" and "host" take the port's default fused kernel)."""
         return cls(al.inner.genome, params=al.p, index=al.index,
                    device=device, n_threads=al.n_threads,
                    junction_backend=al.junction_backend,
-                   seed_lookup=al._seed_lookup is not None)
+                   seed_lookup=al._seed_lookup is not None,
+                   backend="pallas" if al.backend == "pallas" else "torch",
+                   devices=devices)
 
     def _device_fallback(self, where: str, err: BaseException) -> None:
         """The reference logs a device failure here and routes the rest of
@@ -170,8 +229,17 @@ class TorchBatchAligner(BatchAligner):
     # ------------------------------------------------------------ chaining
     def _prepare_dispatch(self, rows: List[_Row]):
         """Host side of the chain dispatch: route rows, chain the small
-        bucket natively, pack the fixed device chunks.  Numpy/C only, so
-        it runs on the seed worker."""
+        bucket natively, pack the fixed device chunks (backend="pallas":
+        pack every row into PALLAS_CHUNK-row chunks).  Numpy/C only, so it
+        runs on the seed worker."""
+        if self.backend == "pallas":
+            dp = []
+            for off in range(0, len(rows), PALLAS_CHUNK):
+                part = range(off, min(off + PALLAS_CHUNK, len(rows)))
+                widest = max(len(rows[i].qpos) for i in part)
+                A = max(A_BUCKETS[0], 1 << (widest - 1).bit_length())
+                dp.append((off, *_pack_rows(rows, part, A, len(part))))
+            return dict(pre=[], chunks=[], host_rows=[], dp=dp)
         a_cap = A_BUCKETS[-1]
         n_rows = len(rows)
         lens = np.fromiter((len(r.qpos) for r in rows), np.int64, n_rows)
@@ -186,31 +254,13 @@ class TorchBatchAligner(BatchAligner):
             if members:
                 buckets[A] = members
 
-        def pack_chunk(A, part, B):
-            qp = np.zeros((B, A), np.int32)
-            gp = np.zeros((B, A), np.int32)
-            nn = np.zeros(B, np.int32)
-            ns = np.array([len(rows[i].qpos) for i in part], np.int64)
-            nn[:len(part)] = ns
-            rowrep = np.repeat(np.arange(len(part)), ns)
-            offs = np.zeros(len(part) + 1, np.int64)
-            np.cumsum(ns, out=offs[1:])
-            col = np.arange(offs[-1]) - np.repeat(offs[:-1], ns)
-            if part:
-                qp[rowrep, col] = np.concatenate([rows[i].qpos for i in part])
-                gp[rowrep, col] = (np.concatenate(
-                    [rows[i].gpos for i in part]) -
-                    np.repeat(np.array([rows[i].base for i in part],
-                                       np.int64), ns))
-            return qp, gp, nn
-
         pending = []
         lib = get_lib()
         small_max = A_BUCKETS[0]
         if lib is not None and small_max in buckets:
             part = buckets.pop(small_max)
             m = len(part)
-            qp, gp, nn = pack_chunk(small_max, part, m)
+            qp, gp, nn = _pack_rows(rows, part, small_max, m)
             mask = np.zeros((m, small_max), np.uint8)
             ps = np.zeros(m, np.float32)
             ss = np.zeros(m, np.float32)
@@ -228,26 +278,29 @@ class TorchBatchAligner(BatchAligner):
             C = self._chunk(A)
             for off in range(0, len(members), C):
                 part = members[off: off + C]
-                chunks.append((part, A, *pack_chunk(A, part, C)))
-        return dict(pre=pending, chunks=chunks, host_rows=host_rows)
+                chunks.append((part, A, *_pack_rows(rows, part, A, C)))
+        return dict(pre=pending, chunks=chunks, host_rows=host_rows, dp=[])
 
     def _chain_rows_async(self, rows: List[_Row], prep=None):
-        """Launch the chain kernel on every device chunk; returns the
-        pending list (device tensors not yet copied back)."""
+        """Launch the chain kernel on every device chunk, split over the
+        devices; returns the pending list (device tensors not yet copied
+        back)."""
         if prep is None:
             prep = self._prepare_dispatch(rows)
         pending = list(prep["pre"])
         kp = chain_params_for_kernel(self.p.chain)
-        dev = self.device
-        n0 = _build.LAUNCHES["chain_dp_backtrack"]
+        n0 = _chain_launches()
         for part, A, qp, gp, nn in prep["chunks"]:
-            res = chain_dp_backtrack(
-                torch.from_numpy(qp).to(dev), torch.from_numpy(gp).to(dev),
-                torch.from_numpy(nn).to(dev), kp, self.p.min_score)
+            res = launch_rows(chain_dp_backtrack, (qp, gp, nn), self.devices,
+                              FUSED_MIN_ROWS, kp, self.p.min_score)
             pending.append(("device", part, nn, A, res))
             self.stats["device_calls"] += 1
-        self.stats["chain_kernel_launches"] += (
-            _build.LAUNCHES["chain_dp_backtrack"] - n0)
+        for off, qp, gp, nn in prep["dp"]:
+            res = launch_rows(chain_dp, (qp, gp, nn), self.devices,
+                              DP_MIN_ROWS, kp)
+            pending.append(("dp", off, nn, res))
+            self.stats["device_calls"] += 1
+        self.stats["chain_kernel_launches"] += _chain_launches() - n0
         if prep["host_rows"]:
             pending.append(("hostrows", prep["host_rows"]))
         return pending
@@ -265,10 +318,21 @@ class TorchBatchAligner(BatchAligner):
                 self.stats["anchors"] += sum(len(rows[i].qpos)
                                              for i in entry[1])
                 continue
+            if kind == "dp":
+                _, off, nn, res = entry
+                t0 = time.perf_counter()
+                f, parent = gather_rows(res)
+                self.stats["device_wall_s"] += time.perf_counter() - t0
+                self.stats["anchors"] += int(np.sum(nn))
+                for bi, n in enumerate(nn.tolist()):
+                    out[off + bi] = backtrack(
+                        f[bi, :n].astype(np.float64),
+                        parent[bi, :n].astype(np.int64), self.p.min_score)
+                continue
             _, part, nn, A, res = entry
             if kind == "device":
                 t0 = time.perf_counter()
-                res = tuple(t.cpu().numpy() for t in res)
+                res = gather_rows(res)
                 self.stats["device_wall_s"] += time.perf_counter() - t0
             self.stats["anchors"] += int(np.sum(nn))
             _decode(out, part, nn, A, *res)
@@ -395,8 +459,9 @@ class TorchBatchAligner(BatchAligner):
                 rc_out)
 
     def warmup_chain_shapes(self) -> None:
-        """Build the kernels and launch each production shape once (every
-        chain bucket chunk, the polish shift DP, and the junction shift DP
+        """Build the kernels and launch each production shape once on every
+        device (every chain bucket chunk, or one DP-only chunk for
+        backend="pallas"; the polish shift DP, and the junction shift DP
         and combine), so neither the nvcc build nor a first launch lands
         inside a timed region.  No-op on the CPU."""
         if self.device.type != "cuda":
@@ -404,12 +469,21 @@ class TorchBatchAligner(BatchAligner):
         _build.load()
         kp = chain_params_for_kernel(self.p.chain)
         dev = self.device
-        for A in (A_BUCKETS[1:] if get_lib() is not None else A_BUCKETS):
-            B = self._chunk(A)
-            qp = torch.zeros((B, A), dtype=torch.int32, device=dev)
+        if self.backend == "pallas":
+            shapes = [(PALLAS_CHUNK, A_BUCKETS[-1])]
+        else:
+            shapes = [(self._chunk(A), A) for A in
+                      (A_BUCKETS[1:] if get_lib() is not None else A_BUCKETS)]
+        for B, A in shapes:
+            qp = np.zeros((B, A), np.int32)
             qp[:, 1] = 1
-            nn = torch.full((B,), 2, dtype=torch.int32, device=dev)
-            chain_dp_backtrack(qp, qp.clone(), nn, kp, self.p.min_score)
+            nn = np.full(B, 2, np.int32)
+            if self.backend == "pallas":
+                launch_rows(chain_dp, (qp, qp, nn), self.devices,
+                            DP_MIN_ROWS, kp)
+            else:
+                launch_rows(chain_dp_backtrack, (qp, qp, nn), self.devices,
+                            FUSED_MIN_ROWS, kp, self.p.min_score)
         q = torch.zeros((_PLACE_M, _PLACE_G), dtype=torch.int8, device=dev)
         win = torch.zeros((_PLACE_M + POLISH_BAND, _PLACE_G),
                           dtype=torch.int8, device=dev)
@@ -424,7 +498,8 @@ class TorchBatchAligner(BatchAligner):
                           device=dev)
         span = torch.full((G,), 1000, dtype=torch.int64, device=dev)
         combine(S, S, m, span, cls, cls, m, m, B, self.p.min_intron_len)
-        torch.cuda.synchronize(dev)
+        for d in {dev, *self.devices}:
+            torch.cuda.synchronize(d)
 
     # ------------------------------------------------------------ top level
     def align_seqset_packed(self, reads: SeqSet,

@@ -79,12 +79,12 @@ def hamming(buf, comb, comb_off, rid, pos) -> torch.Tensor:
                                 for t in (comb, comb_off, rid, pos))
     mm = torch.empty(C, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        start = _build.start_event()
+        start = _build.start_event(dev)
         rc = lib.lr2_hamming(buf.data_ptr(), buf.shape[0], comb.data_ptr(),
                              comb_off.data_ptr(), rid.data_ptr(),
                              pos.data_ptr(), C, mm.data_ptr(),
                              _build.stream_handle(dev))
-        _build.launched("hamming", rc, start)
+        _build.launched("hamming", rc, start, dev)
     return mm
 
 

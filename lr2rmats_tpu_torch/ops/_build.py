@@ -2,15 +2,17 @@
 
 All kernels of the package live in `lr2rmats_tpu_torch/csrc/*.cu` behind a
 plain C interface.  At first use they are compiled with `nvcc` for Hopper
-(`sm_90a`) into one shared library under `build/lr2rmats_tpu_torch/`, named
-by a hash of the sources and flags, and loaded with `ctypes`.  A missing
-`nvcc` or a failed build raises: there is no fallback.
+(`sm_90a`), one `nvcc -c` per source, all started together, then linked
+into one shared library under `build/lr2rmats_tpu_torch/`, named by a hash
+of the sources and flags, and loaded with `ctypes`.  A missing `nvcc` or a
+failed build raises: there is no fallback.
 
-Launch counts: every kernel wrapper calls `launched(name, rc, start)` right
-after its C launch function returns.  That checks the returned
-`cudaGetLastError()` code (a refused launch never runs, and a later
-synchronize would not report it), adds one to `LAUNCHES[name]`, and closes
-the CUDA event pair opened by `start_event()` while a `timing()` block is
+Launch counts: every kernel wrapper calls `launched(name, rc, start,
+device)` right after its C launch function returns.  That checks the
+returned `cudaGetLastError()` code (a refused launch never runs, and a
+later synchronize would not report it), adds one to `LAUNCHES[name]` and
+to `CARD_LAUNCHES[card index]`, and closes the CUDA event pair opened by
+`start_event(device)` on the launching card while a `timing()` block is
 active.  Nothing else touches the counts.
 """
 
@@ -24,26 +26,31 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
 SOURCES = [os.path.join(_PKG, "csrc", name)
-           for name in ("chain.cu", "shift_dp.cu", "combine.cu",
-                        "hamming.cu")]
+           for name in ("chain.cu", "chain_dp.cu", "shift_dp.cu",
+                        "combine.cu", "hamming.cu", "log_probe.cu")]
 BUILD_DIR = os.path.join(_REPO, "build", "lr2rmats_tpu_torch")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v"]
 
-KERNELS = ("chain_dp_backtrack", "shift_dp", "combine", "hamming")
+KERNELS = ("chain_dp_backtrack", "chain_dp", "shift_dp", "combine",
+           "hamming", "log_probe")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+# launches of every kernel per card index
+CARD_LAUNCHES: Dict[int, int] = {}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 # filled by the first successful load(): wall seconds of the nvcc build (0.0
 # when the library was already built) and nvcc's -Xptxas -v report
 build_info: Dict[str, object] = {}
-_events: Optional[List[Tuple[str, object, object]]] = None
+_events: Optional[List[Tuple[str, object, object, object]]] = None
 
 
 def _nvcc() -> str:
@@ -69,17 +76,36 @@ def library_path() -> str:
 
 
 def _build(so: str) -> None:
+    """Compile every source to an object with its own nvcc, all at once,
+    then link the objects into `so`."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
+    tag = f"{os.getpid()}.tmp"
+    tmp = f"{so}.{tag}"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+            for src in SOURCES]
+    nvcc = _nvcc()
+
+    def run(cmd):
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError("nvcc failed (rc %d):\n%s\n%s" % (
+                res.returncode, " ".join(cmd), res.stderr[-8000:]))
+        return res.stderr
+
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError("nvcc failed (rc %d):\n%s\n%s" % (
-            res.returncode, " ".join(cmd), res.stderr[-8000:]))
-    os.replace(tmp, so)
+    try:
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            reports = list(pool.map(run, [
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                for src, obj in zip(SOURCES, objs)]))
+        run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs])
+        os.replace(tmp, so)
+    finally:
+        for f in (*objs, tmp):
+            if os.path.exists(f):
+                os.remove(f)
     build_info["build_s"] = time.perf_counter() - t0
-    build_info["ptxas"] = res.stderr
+    build_info["ptxas"] = "".join(reports)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -94,6 +120,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         #                                     intron_scale, min_score
         p, p, p, p, p,                      # mask, ps, ss, f_out, parent_out
         p]                                  # stream
+    lib.lr2_chain_dp.restype = i
+    lib.lr2_chain_dp.argtypes = [
+        p, p, p, i, i,                      # qpos, rpos, n_anchor, B, A
+        i, i, i, i, i,                      # window, k, max_qgap,
+        #                                     max_intron, min_intron_gap
+        f, f, f,                            # gap_open, gap_scale,
+        #                                     intron_scale
+        p, p, p]                            # f_out, parent_out, stream
     lib.lr2_shift_dp.restype = i
     lib.lr2_shift_dp.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.lr2_combine.restype = i
@@ -107,6 +141,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, ll, p, p, p, p, ll, p,           # buf, n, comb, comb_off, rid,
         #                                     pos, C, mm
         p]                                  # stream
+    lib.lr2_log_probe.restype = i
+    lib.lr2_log_probe.argtypes = [p, p, ll, i, p]   # x, y, n, log2_op,
+    #                                                 stream
     lib.lr2_cuda_error_string.restype = ctypes.c_char_p
     lib.lr2_cuda_error_string.argtypes = [i]
 
@@ -132,40 +169,46 @@ def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def start_event():
-    """A recorded CUDA start event while a timing() block is active."""
+def start_event(device):
+    """A CUDA start event recorded on `device`'s current stream while a
+    timing() block is active, else None."""
     if _events is None:
         return None
     import torch
     ev = torch.cuda.Event(enable_timing=True)
-    ev.record()
+    ev.record(torch.cuda.current_stream(device))
     return ev
 
 
-def launched(name: str, rc: int, start=None) -> None:
-    """Account for one launch of kernel `name`; raises if it was refused."""
+def launched(name: str, rc: int, start, device) -> None:
+    """Account for one launch of kernel `name` on `device`; raises if it
+    was refused."""
     if rc != 0:
         msg = _lib.lr2_cuda_error_string(rc).decode() if _lib else "?"
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"error {rc} ({msg})")
     LAUNCHES[name] += 1
+    card = device.index if device.index is not None else 0
+    CARD_LAUNCHES[card] = CARD_LAUNCHES.get(card, 0) + 1
     if start is not None and _events is not None:
         import torch
         end = torch.cuda.Event(enable_timing=True)
-        end.record()
-        _events.append((name, start, end))
+        end.record(torch.cuda.current_stream(device))
+        _events.append((name, device, start, end))
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    CARD_LAUNCHES.clear()
 
 
 @contextlib.contextmanager
 def timing():
     """Record a CUDA event pair around every kernel launch made inside the
     block; yields a dict that, once the block exits, maps kernel name to
-    its summed device milliseconds."""
+    its summed device milliseconds.  Every card that launched inside the
+    block is synchronized before the events are read."""
     global _events
     import torch
     _events = []
@@ -174,6 +217,7 @@ def timing():
         yield out
     finally:
         events, _events = _events, None
-        torch.cuda.synchronize()
-        for name, s, e in events:
+        for dev in {d for _, d, _, _ in events}:
+            torch.cuda.synchronize(dev)
+        for name, _, s, e in events:
             out[name] = out.get(name, 0.0) + s.elapsed_time(e)

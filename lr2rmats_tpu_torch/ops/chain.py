@@ -1,10 +1,13 @@
-"""Fused splice-aware chaining DP + backtrack.
+"""Splice-aware chaining DP: fused with the backtrack, and alone.
 
 Counterpart of lr2rmats_tpu/ops/chain_pallas.py (`_kernel`, the DP) and
 lr2rmats_tpu/ops/chain_jax.py (`_scan_core` + `_backtrack_core`, the
-production fused call).  The kernel is `csrc/chain.cu` (one warp per read;
-its header says what bounds it and how the design answers); the plain
-PyTorch versions here follow chain_jax step for step.
+production fused call; `_chain_scan_T`, the DP alone).  Two kernels, one
+warp per read each (their headers say what bounds them and how the design
+answers): `csrc/chain.cu` fuses the DP with the backtrack for rows of up
+to K_MAX_A anchors (`chain_dp_backtrack`); `csrc/chain_dp.cu` runs the DP
+alone at any number of anchors (`chain_dp`, `chain_anchors_batch`).  The
+plain PyTorch versions here follow chain_jax step for step.
 
 Contract (the reference's `unpack_chain_result`, without its 2-bit
 packing):
@@ -20,7 +23,7 @@ bandwidth; the port takes plain int32.  Scores are float32 as on the TPU.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +35,9 @@ from . import _build
 NEG = -1e18
 MAX_EXAMINE = 48          # align/chain.py:backtrack's candidate cap
 K_MAX_A = 512             # anchors per row the kernel takes (chain.cu kMaxA)
+# fewest rows per device for a split dispatch (the reference shards fused
+# chunks at 8 lanes a device and the DP alone at 2, chain_jax.py:401, 457)
+FUSED_MIN_ROWS, DP_MIN_ROWS = 8, 2
 
 
 class KernelChainParams(NamedTuple):
@@ -193,6 +199,80 @@ def _check(qpos, rpos, n_anchor):
                              f"{qpos.device}")
 
 
+def split_rows(B: int, devices: Sequence, min_rows: int
+               ) -> List[Tuple[object, int, int]]:
+    """(device, lo, hi) row blocks of a B-row chain dispatch over
+    `devices`: contiguous equal blocks in device order when there is more
+    than one device, B % n == 0 and B >= min_rows * n (the reference's
+    `_dp_shardings` rule, chain_jax.py:382), else all rows on devices[0]."""
+    n = len(devices)
+    if n > 1 and B % n == 0 and B >= min_rows * n:
+        m = B // n
+        return [(d, i * m, (i + 1) * m) for i, d in enumerate(devices)]
+    return [(devices[0], 0, B)]
+
+
+def launch_rows(fn, arrays: Sequence[np.ndarray], devices: Sequence,
+                min_rows: int, *args) -> list:
+    """fn(*blocks, *args) for each row block of split_rows over `devices`,
+    the blocks being the rows lo:hi of each numpy array copied to that
+    block's device.  Returns the per-block outputs (device tensors, not yet
+    copied back) in device order."""
+    return [fn(*(torch.from_numpy(np.ascontiguousarray(a[lo:hi])).to(d)
+                 for a in arrays), *args)
+            for d, lo, hi in split_rows(len(arrays[0]), devices, min_rows)]
+
+
+def gather_rows(parts: list) -> Tuple[np.ndarray, ...]:
+    """launch_rows' per-block outputs copied back and concatenated along
+    the rows in device order, one numpy array per output."""
+    return tuple(np.concatenate([blk[k].cpu().numpy() for blk in parts])
+                 for k in range(len(parts[0])))
+
+
+def chain_dp(qpos: torch.Tensor, rpos: torch.Tensor, n_anchor: torch.Tensor,
+             p: KernelChainParams) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chain DP alone at any number of anchors per row: (f float32
+    [B, A], parent int32 [B, A]), -1e18 / -1 beyond n_anchor.  CUDA
+    tensors launch csrc/chain_dp.cu; CPU tensors run the plain PyTorch
+    version."""
+    _check(qpos, rpos, n_anchor)
+    dev = qpos.device
+    if dev.type == "cpu":
+        return chain_dp_reference(qpos, rpos, n_anchor, p)
+    if dev.type != "cuda":
+        raise ValueError(f"chain_dp: unsupported device {dev}")
+    lib = _build.load()
+    B, A = qpos.shape
+    qpos, rpos, n_anchor = (t.contiguous() for t in (qpos, rpos, n_anchor))
+    f = torch.empty((B, A), dtype=torch.float32, device=dev)
+    parent = torch.empty((B, A), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        start = _build.start_event(dev)
+        rc = lib.lr2_chain_dp(
+            qpos.data_ptr(), rpos.data_ptr(), n_anchor.data_ptr(), B, A,
+            p.window, p.k, p.max_qgap, p.max_intron, p.min_intron_gap,
+            p.gap_open, p.gap_scale, p.intron_scale, f.data_ptr(),
+            parent.data_ptr(), _build.stream_handle(dev))
+        _build.launched("chain_dp", rc, start, dev)
+    return f, parent
+
+
+def chain_anchors_batch(qpos: np.ndarray, rpos: np.ndarray,
+                        n_anchor: np.ndarray, p: ChainParams,
+                        devices: Sequence = ("cuda",)
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Batched chaining, numpy in and out: (f [B, A] float32, parent
+    [B, A] int32), the contract of chain_jax.chain_anchors_batch
+    (chain_jax.py:472) and chain_pallas.chain_anchors_batch_pallas.  Rows
+    are split over `devices` as split_rows says with DP_MIN_ROWS (the
+    reference's dp sharding over its local devices)."""
+    arrays = [np.asarray(a, np.int32) for a in (qpos, rpos, n_anchor)]
+    return gather_rows(launch_rows(chain_dp, arrays,
+                                   [torch.device(d) for d in devices],
+                                   DP_MIN_ROWS, chain_params_for_kernel(p)))
+
+
 def chain_dp_backtrack(qpos: torch.Tensor, rpos: torch.Tensor,
                        n_anchor: torch.Tensor, p: KernelChainParams,
                        min_score: float, dp_out: bool = False):
@@ -219,14 +299,14 @@ def chain_dp_backtrack(qpos: torch.Tensor, rpos: torch.Tensor,
         parent = torch.empty((B, A), dtype=torch.int32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
-        start = _build.start_event()
+        start = _build.start_event(dev)
         rc = lib.lr2_chain_dp_backtrack(
             qpos.data_ptr(), rpos.data_ptr(), n_anchor.data_ptr(), B, A,
             p.window, p.k, p.max_qgap, p.max_intron, p.min_intron_gap,
             p.gap_open, p.gap_scale, p.intron_scale,
             _f32(min_score), mask.data_ptr(), ps.data_ptr(),
             ss.data_ptr(), ptr(f), ptr(parent), _build.stream_handle(dev))
-        _build.launched("chain_dp_backtrack", rc, start)
+        _build.launched("chain_dp_backtrack", rc, start, dev)
     if dp_out:
         return mask, ps, ss, f, parent
     return mask, ps, ss

@@ -232,14 +232,14 @@ def combine(SL, SR, m, span, dok, aok, el, er, B: int, min_intron: int):
                           for _ in range(4))
     found = torch.empty(G, dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
-        start = _build.start_event()
+        start = _build.start_event(dev)
         rc = lib.lr2_combine(
             SL.data_ptr(), SR.data_ptr(), m.data_ptr(), span.data_ptr(),
             dok.data_ptr(), aok.data_ptr(), el.data_ptr(), er.data_ptr(),
             M1 - 1, G, B, int(min_intron), score.data_ptr(), bj.data_ptr(),
             bcl.data_ptr(), bcr.data_ptr(), vote.data_ptr(),
             found.data_ptr(), _build.stream_handle(dev))
-        _build.launched("combine", rc, start)
+        _build.launched("combine", rc, start, dev)
     return score, bj, bcl, bcr, vote, found
 
 

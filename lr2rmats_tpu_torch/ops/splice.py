@@ -96,9 +96,9 @@ def shift_dp(q: torch.Tensor, win: torch.Tensor, m: torch.Tensor,
     S = torch.empty((M + 1, 2 * band + 1, G), dtype=torch.float32,
                     device=dev)
     with torch.cuda.device(dev):
-        start = _build.start_event()
+        start = _build.start_event(dev)
         rc = lib.lr2_shift_dp(q.data_ptr(), win.data_ptr(), m.data_ptr(),
                               S.data_ptr(), M, G, band, q.element_size(),
                               _build.stream_handle(dev))
-        _build.launched("shift_dp", rc, start)
+        _build.launched("shift_dp", rc, start, dev)
     return S

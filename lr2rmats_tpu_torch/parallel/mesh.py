@@ -13,13 +13,19 @@ Where the reference expresses the step with shard_map over devices of one
 process, each rank here runs its own shard and the collectives are
 explicit `dist.all_gather` calls over the mesh's dimension groups, with
 the pieces put in mesh-coordinate order (jax's tiled all-gather order).
-The chain DP is the port's kernel (ops/chain.py `chain_dp_backtrack`,
-csrc/chain.cu on CUDA tensors, its plain version on CPU tensors).
+The chain DP is the port's DP-only kernel (ops/chain.py `chain_dp`,
+csrc/chain_dp.cu on CUDA tensors, its plain version on CPU tensors), which
+takes any number of anchors a read, as the reference's
+`_chain_score_local` does.
+
+`local_exchange_candidates` is the one-process counterpart of the
+reference's `mesh_exchange_candidates` over the devices a process sees:
+there the devices are cards of this process, not ranks of a group.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,8 +33,8 @@ import torch.distributed as dist
 
 from lr2rmats_tpu.align.chain import ChainParams
 
-from ..ops.chain import (NEG, chain_dp_backtrack, chain_dp_reference,
-                         chain_params_for_kernel, check_anchor_width)
+from ..ops.chain import (NEG, chain_dp, chain_dp_reference,
+                         chain_params_for_kernel)
 
 # invalid-anchor position on int32 lanes (reference mesh.py:125)
 SENTINEL = 2 ** 30
@@ -100,6 +106,7 @@ def sharded_align_step(mesh, chain_params: Optional[ChainParams] = None,
     chain DP runs, and the per-read max over the valid anchors is
     all-gathered over dp.  Rows without an anchor score -1e18.
 
+    Any Q * H: the DP is csrc/chain_dp.cu, which has no anchor cap.
     plain=True runs the DP's plain PyTorch version (chain_dp_reference)
     on the same device instead of the kernel, to hold one against the
     other.  Hashes are compared as int64 on the device, which keeps the
@@ -131,8 +138,6 @@ def sharded_align_step(mesh, chain_params: Optional[ChainParams] = None,
                 f"split evenly over tp={n_tp} and dp={n_dp} (and the index "
                 "must not be empty)")
         A = n_tp * Q * H        # anchors per read after the tp gather
-        if not plain:           # before any collective: every rank raises
-            check_anchor_width(A, dev)
         Ml, Bl = M // n_tp, B // n_dp
 
         def local(a, n, i, dtype):
@@ -158,11 +163,8 @@ def sharded_align_step(mesh, chain_params: Optional[ChainParams] = None,
         gpos = gpos.gather(1, order)
         qpos = qpos.gather(1, order)
         n_anchor = ok.gather(1, order).sum(1, dtype=torch.int32)
-        if plain:
-            f, _ = chain_dp_reference(qpos, gpos, n_anchor, kp)
-        else:
-            f = chain_dp_backtrack(qpos, gpos, n_anchor, kp, 0.0,
-                                   dp_out=True)[3]
+        dp = chain_dp_reference if plain else chain_dp
+        f, _ = dp(qpos, gpos, n_anchor, kp)
         valid = torch.arange(A, device=dev)[None, :] < n_anchor[:, None]
         scores = torch.where(valid, f, NEG).max(1).values
         return _gather(scores, mesh, "dp", 0)
@@ -214,4 +216,30 @@ def mesh_exchange_candidates(T, mesh=None):
     T.exon_end[:n] = gee[:n]
     T.exon_n[:n] = gen[:n]
     T.tid[:n] = gtid[:n]
+    return T
+
+
+def local_exchange_candidates(T, devices: Sequence):
+    """Run a candidate-transcript set T through a gather over the local
+    `devices` of this process, in place (the reference's
+    mesh_exchange_candidates, parallel/mesh.py:171-215, over
+    jax.devices()): rows padded to len(devices), slice i placed on
+    devices[i], the slices gathered back on devices[0] in device order and
+    written back, which is the host order again.  A no-op on fewer than two
+    devices or for an empty set."""
+    n_dev = len(devices)
+    if n_dev < 2 or T.n == 0:
+        return T
+    n = T.n
+    rows = (n + n_dev - 1) // n_dev
+    home = torch.device(devices[0])
+    for name in ("exon_start", "exon_end", "exon_n", "tid"):
+        a = np.asarray(getattr(T, name)[:n])
+        pad = np.zeros((rows * n_dev - n,) + a.shape[1:], a.dtype)
+        full = np.concatenate([a, pad], 0)
+        parts = [torch.from_numpy(np.ascontiguousarray(
+            full[i * rows: (i + 1) * rows])).to(d)
+            for i, d in enumerate(devices)]
+        gathered = torch.cat([t.to(home) for t in parts], 0)
+        getattr(T, name)[:n] = gathered.cpu().numpy()[:n]
     return T

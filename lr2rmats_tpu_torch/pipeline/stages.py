@@ -21,9 +21,15 @@ process runs the round-robin shard of samples it owns on its own device,
 `cuda:{process_id % device_count}` (or the CPU), with `.p{pid}` suffixes on
 its log and index benchmark file; the pass-2 GTFs are all-gathered and
 process 0 alone writes config.yaml, the gathered GTFs and updated.gtf,
-while the others wait at a barrier.  The port keeps one device per
-process, so, as in the reference with one local device, unique-gtf runs
-without the device gather of its candidates (`device_gather=False`).
+while the others wait at a barrier; each process keeps one card.
+
+A process alone on a machine with several cards uses all of them, as the
+reference uses every local device of its one process: `device="cuda"`
+(or an explicit `devices` list) splits each chain launch of the align
+stage over the cards (align/batch.py), and the final merge's unique-gtf
+gathers its candidates over them (pipeline/commands.py `cmd_unique_gtf`
+with `device_gather=True`, the reference's `mesh_exchange_candidates`
+role).  Polish, junctions and sj_count run on the first card.
 
 Left out with respect to the reference: the device-init probe and the link
 preflip (they guarded a remote TPU link), the JAX compile cache and the
@@ -39,7 +45,7 @@ import shutil
 import sys
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -51,8 +57,7 @@ from lr2rmats_tpu.io.gtf import ChrNames, read_anno_trans
 from lr2rmats_tpu.io.sam import sam_header
 from lr2rmats_tpu.io.sj import write_sj_star
 from lr2rmats_tpu.native import get_lib
-from lr2rmats_tpu.pipeline.commands import (cmd_filter, cmd_unique_gtf,
-                                            cmd_update_gtf)
+from lr2rmats_tpu.pipeline.commands import cmd_filter, cmd_update_gtf
 from lr2rmats_tpu.pipeline.config import PipelineConfig
 from lr2rmats_tpu.pipeline.stages import (_done, _ensure_dirs, _fresh,
                                           write_bed12, write_bed12_batch)
@@ -69,6 +74,7 @@ from ..ops import _build
 from ..parallel.distributed import (barrier, gather_indexed_payloads,
                                     multihost_info, owned_indices)
 from ..parallel.shard_index import ShardedMinimizerIndex
+from .commands import cmd_unique_gtf
 
 
 class _Tee:
@@ -147,17 +153,36 @@ def _process_device(device, pid: int) -> torch.device:
     return dev
 
 
+def _local_devices(asked, device: torch.device, devices, nproc: int
+                   ) -> List[torch.device]:
+    """The devices of a one-process run: `devices` when given, every card
+    for a bare "cuda", else [device]; under a process group [device]."""
+    if devices is not None:
+        if nproc > 1:
+            raise ValueError("devices= is for a one-process run; under a "
+                             "process group each process takes one card")
+        return [resolve_device(d) for d in devices]
+    if nproc == 1 and device.type == "cuda" and \
+            torch.device(asked).index is None:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
 def run_pipeline(cfg: PipelineConfig,
                  align_params: Optional[AlignParams] = None,
-                 device="cuda") -> str:
+                 device="cuda", devices: Optional[Sequence] = None) -> str:
     """Run the full two-pass pipeline; returns the updated.gtf path.
     Outputs are byte-identical to the reference's run_pipeline on the same
-    inputs, for any number of processes."""
+    inputs, for any number of processes and cards.  `devices`: the cards
+    of a one-process run (default: every card for device="cuda")."""
     if not cfg.samples:
         raise ValueError("pipeline config has no samples (cfg.samples "
                          "is empty)")
     pid, nproc = multihost_info()
+    asked = device
     device = _process_device(device, pid)
+    devices = _local_devices(asked, device, devices, nproc)
     out_dir = cfg.out_dir
     _ensure_dirs(out_dir)
     A = lambda *p: os.path.join(out_dir, *p)  # noqa: E731
@@ -169,6 +194,9 @@ def run_pipeline(cfg: PipelineConfig,
     filter_pool = None
     try:
         log("pipeline", "process %d/%d on %s", pid, nproc, device)
+        if len(devices) > 1:
+            log("pipeline", "chain launches and the candidate gather split "
+                "over %s", ", ".join(map(str, devices)))
         if pid == 0:   # the out dir may be shared by the group
             _write_config(cfg, A("config.yaml"))
 
@@ -228,7 +256,8 @@ def run_pipeline(cfg: PipelineConfig,
                                                         ".tmmi.npz")
                             idx = _load_index(genome, cache, nproc > 1)
                         aligner = TorchBatchAligner(genome, align_params,
-                                                    index=idx, device=device)
+                                                    index=idx, device=device,
+                                                    devices=devices)
                         aligner.warmup_chain_shapes()
                     long_reads = read_fasta(reads.long_read)
                     rb = aligner.align_seqset_packed(long_reads)
@@ -389,8 +418,8 @@ def run_pipeline(cfg: PipelineConfig,
                     f.write(gathered[gi])
                 gtf_novel_paths.append(p)
 
-        # ---- stage: update_gtf (cross-sample merge); one device per
-        # process, so no device gather of the candidates
+        # ---- stage: update_gtf (cross-sample merge); with several cards
+        # in this process the candidates are gathered over them
         with Timer("stage/final_merge",
                    benchmark_file=A("benchmark", "update_gtf.benchmark.txt")):
             tmp = A("gtf", "tmp.gtf")
@@ -398,7 +427,7 @@ def run_pipeline(cfg: PipelineConfig,
             uniq_gtf = A("gtf", "uniq.gtf")
             cmd_unique_gtf(tmp, UpdateGtfParams(input_mode="gtf"),
                            hdr_bam=first_sam, out_path=uniq_gtf,
-                           device_gather=False)
+                           device_gather=len(devices) > 1, devices=devices)
             _concat((cfg.gtf, uniq_gtf), tmp)
             sort_gtf_file(tmp, updated_gtf)
             os.remove(tmp)

@@ -5,11 +5,15 @@ false).  This file imports no jax, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_kernels.py
 
-Every comparison is exact: the chain kernel rounds each float32 add and
-multiply like the plain version's elementwise ops and calls the same
-log2f; the shift-DP scores are integers; the combine scores are integers or
+Every comparison is exact: the chain kernels round each float32 add and
+multiply like the plain version's elementwise ops and call the same
+log2f; the log probe calls the logf / log2f that torch.log / torch.log2
+call; the shift-DP scores are integers; the combine scores are integers or
 multiples of 3/8, evaluated in the plain version's order; the Hamming
 counts and seed ranges are integers.
+
+The tests named *_cards / *_every_card need two or more cards and run in
+one call on a four-card machine (README, "One process, several cards").
 
 `junction_gaps` and `sim_dataset` are shared with the CPU tests
 (tests/test_torch_junction.py, tests/test_torch_pipeline.py).
@@ -28,7 +32,7 @@ import torch
 from lr2rmats_tpu.align.chain import ChainParams
 from lr2rmats_tpu_torch.align.polish import polish_best_pair
 from lr2rmats_tpu_torch.ops import _build
-from lr2rmats_tpu_torch.ops.chain import (chain_dp_backtrack,
+from lr2rmats_tpu_torch.ops.chain import (chain_dp, chain_dp_backtrack,
                                           chain_dp_backtrack_reference,
                                           chain_dp_reference,
                                           chain_params_for_kernel)
@@ -165,6 +169,48 @@ def test_chain_kernel_matches_plain(dev, A, B):
     assert bool((ps > 0).any())
 
 
+@pytest.mark.parametrize("A,B", [(128, 256), (512, 64), (1024, 64),
+                                 (4096, 16), (8, 37)])
+def test_chain_dp_kernel_matches_plain(dev, A, B):
+    """csrc/chain_dp.cu == the plain DP at any width, and == the fused
+    kernel's f / parent where that takes the rows (A <= 512)."""
+    kp = chain_params_for_kernel(ChainParams())
+    q, g, n = (torch.from_numpy(a).to(dev) for a in _anchor_rows(A * B, B, A))
+    before = _build.LAUNCHES["chain_dp"]
+    f, parent = chain_dp(q, g, n, kp)
+    assert _build.LAUNCHES["chain_dp"] == before + 1
+    rf, rparent = chain_dp_reference(q, g, n, kp)
+    torch.cuda.synchronize()
+    assert torch.equal(parent, rparent) and torch.equal(f, rf)
+    assert bool((parent >= 0).any())
+    if A <= 512:
+        _, _, _, ff, fparent = chain_dp_backtrack(q, g, n, kp, 20.0,
+                                                  dp_out=True)
+        assert torch.equal(f, ff) and torch.equal(parent, fparent)
+
+
+def test_log_probe_kernel_matches_plain(dev):
+    """csrc/log_probe.cu == torch.log(x) * LOG2E and its log2f row ==
+    torch.log2, bit for bit, over the diagnostic's sample."""
+    from lr2rmats_tpu_torch.diag.chain_parity import (log_probe,
+                                                      log_probe_reference,
+                                                      probe_sample)
+    x = torch.from_numpy(probe_sample()[1]).to(dev)
+    before = _build.LAUNCHES["log_probe"]
+    got, got2 = log_probe(x), log_probe(x, log2=True)
+    assert _build.LAUNCHES["log_probe"] == before + 2
+    assert torch.equal(got, log_probe_reference(x))
+    assert torch.equal(got2, torch.log2(x))
+
+
+def test_chain_dp_refuses_a_window_it_cannot_hold(dev):
+    kp = chain_params_for_kernel(ChainParams(window=4096))
+    q = torch.zeros((4, 64), dtype=torch.int32, device=dev)
+    n = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        chain_dp(q, q, n, kp)
+
+
 @pytest.mark.parametrize("band,M,G,dtype", [(8, 192, 256, np.int8),
                                             (8, 192, 512, np.int8),
                                             (4, 64, 128, np.int32),
@@ -218,6 +264,55 @@ def test_slice_on_card_matches_host_backend(dev):
     assert port.stats["chain_kernel_launches"] > 0
     assert port.stats["shift_dp_kernel_launches"] > 0
     assert got == ref.align_seqset_packed(seqset).emit_sam(ref.refs)
+
+
+def _bench_slice(n_reads=512):
+    import bench
+    rng = np.random.default_rng(123)
+    g = bench.build_genome(2_000_000, rng)
+    reads, _ = bench.simulate_reads(g, n_reads, rng, profile="ont")
+    return g, bench._pack(reads, [f"read{i}" for i in range(len(reads))])
+
+
+def test_pallas_backend_slice_on_card_matches_host_backend(dev):
+    """backend="pallas": every row through csrc/chain_dp.cu, host
+    backtrack; the SAM of the reference's host backend."""
+    from lr2rmats_tpu.align.batch import BatchAligner
+    from lr2rmats_tpu_torch.align.batch import TorchBatchAligner
+    g, seqset = _bench_slice()
+    ref = BatchAligner(g, backend="host")
+    port = TorchBatchAligner(g, index=ref.index, device="cuda",
+                             backend="pallas")
+    port.warmup_chain_shapes()
+    before = dict(_build.LAUNCHES)
+    got = port.align_seqset_packed(seqset).emit_sam(port.refs)
+    assert _build.LAUNCHES["chain_dp"] > before["chain_dp"]
+    assert _build.LAUNCHES["chain_dp_backtrack"] == \
+        before["chain_dp_backtrack"]
+    assert got == ref.align_seqset_packed(seqset).emit_sam(ref.refs)
+
+
+@pytest.mark.parametrize("backend", ["torch", "pallas"])
+def test_slice_split_over_every_card(dev, backend):
+    """TorchBatchAligner(devices=every card): each chain launch split in
+    one row block per card; SAM identical to one card, and every card
+    launched kernels."""
+    from lr2rmats_tpu_torch.align.batch import TorchBatchAligner
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs two cards")
+    g, seqset = _bench_slice()
+    one = TorchBatchAligner(g, device="cuda:0", backend=backend)
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    every = TorchBatchAligner(g, index=one.index, device="cuda:0",
+                              backend=backend, devices=cards)
+    every.warmup_chain_shapes()
+    want = one.align_seqset_packed(seqset).emit_sam(one.refs)
+    _build.reset_launches()
+    got = every.align_seqset_packed(seqset).emit_sam(every.refs)
+    assert sorted(_build.CARD_LAUNCHES) == list(range(n_cards))
+    assert all(v > 0 for v in _build.CARD_LAUNCHES.values())
+    assert got == want
 
 
 def _junction_tensors(ref, gaps, dev):
@@ -307,10 +402,11 @@ def test_pipeline_on_card_matches_host_reference(dev, tmp_path, monkeypatch):
         pipeline_outputs(tmp_path / "ref")
 
 
-def test_mesh_step_on_card_matches_plain(dev):
+@pytest.mark.parametrize("H", [4, 8])
+def test_mesh_step_on_card_matches_plain(dev, H):
     """sharded_align_step on a world-1 (1, 1) mesh over NCCL: 128
-    minimizers x 4 hits = 512 anchors a read (the kernel's limit), one
-    chain kernel launch, the plain DP's scores exactly."""
+    minimizers x H hits = 512 or 1024 anchors a read (the DP-only kernel
+    has no cap), one chain_dp launch, the plain DP's scores exactly."""
     import socket
 
     import torch.distributed as dist
@@ -333,10 +429,11 @@ def test_mesh_step_on_card_matches_plain(dev):
                             world_size=1, rank=0)
     try:
         mesh = make_mesh(1, 1, "cuda")
-        before = _build.LAUNCHES["chain_dp_backtrack"]
-        got = sharded_align_step(mesh)(h, pos, rh, rq)
-        assert _build.LAUNCHES["chain_dp_backtrack"] == before + 1
-        want = sharded_align_step(mesh, plain=True)(h, pos, rh, rq)
+        before = _build.LAUNCHES["chain_dp"]
+        got = sharded_align_step(mesh, hits_per_seed=H)(h, pos, rh, rq)
+        assert _build.LAUNCHES["chain_dp"] == before + 1
+        want = sharded_align_step(mesh, hits_per_seed=H, plain=True)(
+            h, pos, rh, rq)
         assert got.device.type == "cuda" and torch.equal(got, want)
         assert float(want.max()) > 100.0
     finally:
@@ -365,7 +462,7 @@ mesh = make_mesh(n, n, dev_type)
 z = np.load(data)
 args = [z[k] for k in ("h", "pos", "rh", "rq")]
 got = sharded_align_step(mesh)(*args)
-launches = _build.LAUNCHES["chain_dp_backtrack"]
+launches = _build.LAUNCHES["chain_dp"]
 want = sharded_align_step(mesh, plain=True)(*args)
 np.savez(f"{out}.{pid}.npz", got=got.cpu().numpy(), want=want.cpu().numpy())
 with open(f"{out}.{pid}.json", "w") as f:
@@ -489,3 +586,29 @@ def test_pipeline_two_processes_two_cards(dev, tmp_path):
     for pid in range(2):
         log = (out / "logs" / f"pipeline.p{pid}.log").read_text()
         assert f"process {pid}/2 on cuda:{pid}" in log
+
+
+def test_pipeline_one_process_every_card(dev, tmp_path, monkeypatch):
+    """run_pipeline(device="cuda") in one process on a machine with several
+    cards splits the chain launches over every card and gathers the final
+    merge's candidates over them: the reference host pipeline's bytes."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from lr2rmats_tpu_torch._reference import parallel_module
+    from lr2rmats_tpu_torch.pipeline.stages import run_pipeline
+    parallel_module("distributed")  # the reference pipeline imports it
+    from lr2rmats_tpu.pipeline.stages import run_pipeline as ref_pipeline
+    data = sim_dataset(tmp_path / "data")
+    ref_pipeline(pipeline_config(data, tmp_path / "ref"), use_tpu=False)
+    for var in ("LR2RMATS_DEVICE_JUNCTIONS", "LR2RMATS_DEVICE_SEED",
+                "LR2RMATS_DEVICE_SJCOUNT"):
+        monkeypatch.setenv(var, "1")
+    _build.reset_launches()
+    run_pipeline(pipeline_config(data, tmp_path / "port"), device="cuda")
+    n_cards = torch.cuda.device_count()
+    assert sorted(_build.CARD_LAUNCHES) == list(range(n_cards))
+    assert pipeline_outputs(tmp_path / "port") == \
+        pipeline_outputs(tmp_path / "ref")
+    log = (tmp_path / "port" / "logs" / "pipeline.log").read_text()
+    assert "split over " + ", ".join(f"cuda:{i}" for i in range(n_cards)) \
+        in log
