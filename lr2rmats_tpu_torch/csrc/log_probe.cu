@@ -1,14 +1,14 @@
 // The log probe of the chain-parity diagnostic: y = ln(x) * log2(e)
-// elementwise over float32, or log2f(x) for the comparison row.
+// elementwise over float32.
 //
 // Replaces scripts/diag_chain_pallas.py:log_probe's `kern` (a Pallas
 // kernel over [S, 128] f32 computing jnp.log(x) * LOG2E, the log2 form the
 // Pallas chain DP uses).  Plain PyTorch version: diag/chain_parity.py
-// log_probe_reference (torch.log(x) * LOG2E, or torch.log2(x)).
+// log_probe_reference (torch.log(x) * LOG2E).
 //
-// Arithmetic: logf and log2f are the CUDA math library's accurate
-// functions (libdevice __nv_logf / __nv_log2f; no --use_fast_math), which
-// torch.log and torch.log2 call on a CUDA float tensor; the product is
+// Arithmetic: logf is the CUDA math library's accurate function (libdevice
+// __nv_logf; no --use_fast_math), which torch.log calls on a CUDA float
+// tensor; the product is
 // one __fmul_rn by log2(e) rounded to float32 (0x1.715476p+0), as torch
 // multiplies a float32 tensor by a Python float.
 //
@@ -26,14 +26,12 @@ namespace {
 constexpr float kLog2e = 0x1.715476p+0f;
 
 __global__ void log_probe_kernel(const float* __restrict__ x,
-                                 float* __restrict__ y, long long n,
-                                 int log2_op) {
+                                 float* __restrict__ y, long long n) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < n; i += stride) {
-    const float v = x[i];
-    y[i] = log2_op ? log2f(v) : __fmul_rn(logf(v), kLog2e);
+    y[i] = __fmul_rn(logf(x[i]), kLog2e);
   }
 }
 
@@ -41,17 +39,15 @@ __global__ void log_probe_kernel(const float* __restrict__ x,
 
 extern "C" {
 
-// x, y: n float32.  log2_op = 0: ln(x) * log2(e); 1: log2f(x).
-// Returns cudaGetLastError().
-int lr2_log_probe(const void* x, void* y, long long n, int log2_op,
-                  void* stream) {
+// x, y: n float32; y = ln(x) * log2(e).  Returns cudaGetLastError().
+int lr2_log_probe(const void* x, void* y, long long n, void* stream) {
   if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaSuccess);
   const int threads = 256;
   const long long want = (n + threads - 1) / threads;
   const int blocks = static_cast<int>(want < 65535 ? want : 65535);
   log_probe_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(y), n, log2_op);
+      static_cast<const float*>(x), static_cast<float*>(y), n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,8 +14,8 @@ shows how its ln(x) * log2(e) differs from XLA's log2.  Here:
     then on the linear-only arm (min_intron_gap = 1 << 30);
   * `log_probe` (csrc/log_probe.cu, the counterpart of `kern`) over the
     reference's sample of every gap the DP can see, against its plain
-    version, torch.log2, log2f (the chain kernels' log, run by the same
-    kernel) and numpy's float32 log2.
+    version, torch.log2 (libdevice log2f on the card, the chain kernels'
+    log) and numpy's float32 log2.
 
     python -m lr2rmats_tpu_torch.diag.chain_parity [--device cpu|cuda]
 
@@ -48,20 +48,19 @@ CHAIN_CASES = ((41, 256, 128), (42, 32, 4096))     # (seed, B, A)
 # ------------------------------------------------------------- log probe
 
 
-def log_probe_reference(x: torch.Tensor, log2: bool = False) -> torch.Tensor:
-    """Plain version: torch.log(x) * LOG2E in float32 (log2: torch.log2)."""
-    return torch.log2(x) if log2 else torch.log(x) * LOG2E
+def log_probe_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain version: torch.log(x) * LOG2E in float32."""
+    return torch.log(x) * LOG2E
 
 
-def log_probe(x: torch.Tensor, log2: bool = False) -> torch.Tensor:
-    """ln(x) * log2(e) elementwise over float32 (log2=True: log2f(x)).
-    CUDA tensors launch csrc/log_probe.cu; CPU tensors run the plain
-    version."""
+def log_probe(x: torch.Tensor) -> torch.Tensor:
+    """ln(x) * log2(e) elementwise over float32.  CUDA tensors launch
+    csrc/log_probe.cu; CPU tensors run the plain version."""
     if x.dtype != torch.float32:
         raise TypeError(f"log_probe takes float32, got {x.dtype}")
     dev = x.device
     if dev.type == "cpu":
-        return log_probe_reference(x, log2)
+        return log_probe_reference(x)
     if dev.type != "cuda":
         raise ValueError(f"log_probe: unsupported device {dev}")
     lib = _build.load()
@@ -70,7 +69,7 @@ def log_probe(x: torch.Tensor, log2: bool = False) -> torch.Tensor:
     with torch.cuda.device(dev):
         start = _build.start_event(dev)
         rc = lib.lr2_log_probe(x.data_ptr(), y.data_ptr(), x.numel(),
-                               int(log2), _build.stream_handle(dev))
+                               _build.stream_handle(dev))
         _build.launched("log_probe", rc, start, dev)
     return y
 
@@ -102,7 +101,6 @@ def log_probe_report(dev: torch.device) -> Dict[str, tuple]:
     rows = {
         "plain": flat(log_probe_reference(xt)),
         "torch.log2": flat(torch.log2(xt)),
-        "log2f": flat(log_probe(xt, log2=True)),
         "numpy log2 (f32)": np.log2(vals + np.float32(1.0)).astype(
             np.float32),
     }

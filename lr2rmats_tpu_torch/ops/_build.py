@@ -142,8 +142,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         #                                     pos, C, mm
         p]                                  # stream
     lib.lr2_log_probe.restype = i
-    lib.lr2_log_probe.argtypes = [p, p, ll, i, p]   # x, y, n, log2_op,
-    #                                                 stream
+    lib.lr2_log_probe.argtypes = [p, p, ll, p]      # x, y, n, stream
     lib.lr2_cuda_error_string.restype = ctypes.c_char_p
     lib.lr2_cuda_error_string.argtypes = [i]
 

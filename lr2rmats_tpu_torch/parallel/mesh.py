@@ -17,15 +17,11 @@ The chain DP is the port's DP-only kernel (ops/chain.py `chain_dp`,
 csrc/chain_dp.cu on CUDA tensors, its plain version on CPU tensors), which
 takes any number of anchors a read, as the reference's
 `_chain_score_local` does.
-
-`local_exchange_candidates` is the one-process counterpart of the
-reference's `mesh_exchange_candidates` over the devices a process sees:
-there the devices are cards of this process, not ranks of a group.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -218,28 +214,3 @@ def mesh_exchange_candidates(T, mesh=None):
     T.tid[:n] = gtid[:n]
     return T
 
-
-def local_exchange_candidates(T, devices: Sequence):
-    """Run a candidate-transcript set T through a gather over the local
-    `devices` of this process, in place (the reference's
-    mesh_exchange_candidates, parallel/mesh.py:171-215, over
-    jax.devices()): rows padded to len(devices), slice i placed on
-    devices[i], the slices gathered back on devices[0] in device order and
-    written back, which is the host order again.  A no-op on fewer than two
-    devices or for an empty set."""
-    n_dev = len(devices)
-    if n_dev < 2 or T.n == 0:
-        return T
-    n = T.n
-    rows = (n + n_dev - 1) // n_dev
-    home = torch.device(devices[0])
-    for name in ("exon_start", "exon_end", "exon_n", "tid"):
-        a = np.asarray(getattr(T, name)[:n])
-        pad = np.zeros((rows * n_dev - n,) + a.shape[1:], a.dtype)
-        full = np.concatenate([a, pad], 0)
-        parts = [torch.from_numpy(np.ascontiguousarray(
-            full[i * rows: (i + 1) * rows])).to(d)
-            for i, d in enumerate(devices)]
-        gathered = torch.cat([t.to(home) for t in parts], 0)
-        getattr(T, name)[:n] = gathered.cpu().numpy()[:n]
-    return T

@@ -23,13 +23,14 @@ its log and index benchmark file; the pass-2 GTFs are all-gathered and
 process 0 alone writes config.yaml, the gathered GTFs and updated.gtf,
 while the others wait at a barrier; each process keeps one card.
 
-A process alone on a machine with several cards uses all of them, as the
-reference uses every local device of its one process: `device="cuda"`
-(or an explicit `devices` list) splits each chain launch of the align
-stage over the cards (align/batch.py), and the final merge's unique-gtf
-gathers its candidates over them (pipeline/commands.py `cmd_unique_gtf`
-with `device_gather=True`, the reference's `mesh_exchange_candidates`
-role).  Polish, junctions and sj_count run on the first card.
+A one-process run takes one card unless `devices` names several: then each
+chain launch of the align stage is split over them (align/batch.py), as
+the reference shards its chain dispatch over the local devices of its one
+process; polish, junctions and sj_count stay on `device`.  The final
+merge's unique-gtf runs without the reference's device gather of its
+candidates (`device_gather=False`): that gather (`mesh_exchange_candidates`
+over one process's devices) sends the candidates through the devices and
+back unchanged to validate its data plane, so it changes no output.
 
 Left out with respect to the reference: the device-init probe and the link
 preflip (they guarded a remote TPU link), the JAX compile cache and the
@@ -57,7 +58,8 @@ from lr2rmats_tpu.io.gtf import ChrNames, read_anno_trans
 from lr2rmats_tpu.io.sam import sam_header
 from lr2rmats_tpu.io.sj import write_sj_star
 from lr2rmats_tpu.native import get_lib
-from lr2rmats_tpu.pipeline.commands import cmd_filter, cmd_update_gtf
+from lr2rmats_tpu.pipeline.commands import (cmd_filter, cmd_unique_gtf,
+                                            cmd_update_gtf)
 from lr2rmats_tpu.pipeline.config import PipelineConfig
 from lr2rmats_tpu.pipeline.stages import (_done, _ensure_dirs, _fresh,
                                           write_bed12, write_bed12_batch)
@@ -74,7 +76,6 @@ from ..ops import _build
 from ..parallel.distributed import (barrier, gather_indexed_payloads,
                                     multihost_info, owned_indices)
 from ..parallel.shard_index import ShardedMinimizerIndex
-from .commands import cmd_unique_gtf
 
 
 class _Tee:
@@ -153,20 +154,16 @@ def _process_device(device, pid: int) -> torch.device:
     return dev
 
 
-def _local_devices(asked, device: torch.device, devices, nproc: int
+def _local_devices(device: torch.device, devices, nproc: int
                    ) -> List[torch.device]:
-    """The devices of a one-process run: `devices` when given, every card
-    for a bare "cuda", else [device]; under a process group [device]."""
-    if devices is not None:
-        if nproc > 1:
-            raise ValueError("devices= is for a one-process run; under a "
-                             "process group each process takes one card")
-        return [resolve_device(d) for d in devices]
-    if nproc == 1 and device.type == "cuda" and \
-            torch.device(asked).index is None:
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    return [device]
+    """The devices the chain launches split over: `devices` when given
+    (a one-process run only), else [device]."""
+    if devices is None:
+        return [device]
+    if nproc > 1:
+        raise ValueError("devices= is for a one-process run; under a "
+                         "process group each process takes one card")
+    return [resolve_device(d) for d in devices]
 
 
 def run_pipeline(cfg: PipelineConfig,
@@ -175,14 +172,14 @@ def run_pipeline(cfg: PipelineConfig,
     """Run the full two-pass pipeline; returns the updated.gtf path.
     Outputs are byte-identical to the reference's run_pipeline on the same
     inputs, for any number of processes and cards.  `devices`: the cards
-    of a one-process run (default: every card for device="cuda")."""
+    a one-process run splits its chain launches over (default
+    [device])."""
     if not cfg.samples:
         raise ValueError("pipeline config has no samples (cfg.samples "
                          "is empty)")
     pid, nproc = multihost_info()
-    asked = device
     device = _process_device(device, pid)
-    devices = _local_devices(asked, device, devices, nproc)
+    devices = _local_devices(device, devices, nproc)
     out_dir = cfg.out_dir
     _ensure_dirs(out_dir)
     A = lambda *p: os.path.join(out_dir, *p)  # noqa: E731
@@ -195,8 +192,8 @@ def run_pipeline(cfg: PipelineConfig,
     try:
         log("pipeline", "process %d/%d on %s", pid, nproc, device)
         if len(devices) > 1:
-            log("pipeline", "chain launches and the candidate gather split "
-                "over %s", ", ".join(map(str, devices)))
+            log("pipeline", "chain launches split over %s",
+                ", ".join(map(str, devices)))
         if pid == 0:   # the out dir may be shared by the group
             _write_config(cfg, A("config.yaml"))
 
@@ -418,8 +415,7 @@ def run_pipeline(cfg: PipelineConfig,
                     f.write(gathered[gi])
                 gtf_novel_paths.append(p)
 
-        # ---- stage: update_gtf (cross-sample merge); with several cards
-        # in this process the candidates are gathered over them
+        # ---- stage: update_gtf (cross-sample merge)
         with Timer("stage/final_merge",
                    benchmark_file=A("benchmark", "update_gtf.benchmark.txt")):
             tmp = A("gtf", "tmp.gtf")
@@ -427,7 +423,7 @@ def run_pipeline(cfg: PipelineConfig,
             uniq_gtf = A("gtf", "uniq.gtf")
             cmd_unique_gtf(tmp, UpdateGtfParams(input_mode="gtf"),
                            hdr_bam=first_sam, out_path=uniq_gtf,
-                           device_gather=len(devices) > 1, devices=devices)
+                           device_gather=False)
             _concat((cfg.gtf, uniq_gtf), tmp)
             sort_gtf_file(tmp, updated_gtf)
             os.remove(tmp)

@@ -8,7 +8,8 @@ test_pallas_backend_matches plus one 165 kb unspliced read whose anchor row
 is wider than the fused kernel's 512 anchors.  Primaries' cigar and
 position and the SAM bytes must equal BatchAligner(backend="jax") and the
 port's default backend exactly.  devices=[cpu, cpu] splits every chain
-launch into two row blocks and must give the SAM of devices=[cpu].
+launch into two row blocks and must give the SAM of devices=[cpu], and,
+through run_pipeline, the reference host pipeline's files.
 """
 
 import numpy as np
@@ -17,11 +18,15 @@ import torch
 
 import bench
 from lr2rmats_tpu.align.batch import BatchAligner
+from lr2rmats_tpu.pipeline.stages import run_pipeline as ref_pipeline
 from lr2rmats_tpu_torch.align.batch import PALLAS_CHUNK, TorchBatchAligner
 from lr2rmats_tpu_torch.ops.chain import K_MAX_A
+from lr2rmats_tpu_torch.pipeline.stages import run_pipeline
 from tests.test_aligner import plant_motifs, random_genome, splice_read
 from tests.test_torch_batch import bench_small  # noqa: F401 (fixture)
 from tests.test_torch_chain import one_torch_thread  # noqa: F401 (autouse)
+from tests.test_torch_kernels import (pipeline_config, pipeline_outputs,
+                                      sim_dataset)
 
 WIDE_EXON = (20_000, 185_000)
 
@@ -128,3 +133,33 @@ def test_split_over_two_devices_matches_one(bench_small, backend):
     assert blocks[0][1] == 2
     want = one.align_seqset_packed(seqset).emit_sam(one.refs)
     assert two.align_seqset_packed(seqset).emit_sam(two.refs) == want
+
+
+@pytest.fixture(scope="module")
+def dataset(tmp_path_factory):
+    """Simulated data and the reference host pipeline's outputs."""
+    root = tmp_path_factory.mktemp("devices")
+    data = sim_dataset(root / "data")
+    ref_pipeline(pipeline_config(data, root / "ref"), use_tpu=False)
+    return root, data, pipeline_outputs(root / "ref")
+
+
+def test_pipeline_on_two_devices_matches_reference(dataset):
+    """run_pipeline(devices=[cpu, cpu]): the align stage's chain launches
+    split in two row blocks give the reference host pipeline's 11 files."""
+    root, data, want = dataset
+    out = root / "port2"
+    run_pipeline(pipeline_config(data, out), device="cpu",
+                 devices=["cpu", "cpu"])
+    assert pipeline_outputs(out) == want
+    log = (out / "logs" / "pipeline.log").read_text()
+    assert "split over cpu, cpu" in log
+
+
+def test_devices_are_refused_under_a_group(monkeypatch, dataset):
+    from lr2rmats_tpu_torch.pipeline import stages
+    root, data, _ = dataset
+    monkeypatch.setattr(stages, "multihost_info", lambda: (0, 2))
+    with pytest.raises(ValueError, match="one-process run"):
+        run_pipeline(pipeline_config(data, root / "grp"), device="cpu",
+                     devices=["cpu", "cpu"])

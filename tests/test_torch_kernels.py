@@ -7,8 +7,7 @@ false).  This file imports no jax, so it also runs on a machine without it:
 
 Every comparison is exact: the chain kernels round each float32 add and
 multiply like the plain version's elementwise ops and call the same
-log2f; the log probe calls the logf / log2f that torch.log / torch.log2
-call; the shift-DP scores are integers; the combine scores are integers or
+log2f; the log probe calls the logf that torch.log calls; the shift-DP scores are integers; the combine scores are integers or
 multiples of 3/8, evaluated in the plain version's order; the Hamming
 counts and seed ranges are integers.
 
@@ -190,17 +189,16 @@ def test_chain_dp_kernel_matches_plain(dev, A, B):
 
 
 def test_log_probe_kernel_matches_plain(dev):
-    """csrc/log_probe.cu == torch.log(x) * LOG2E and its log2f row ==
-    torch.log2, bit for bit, over the diagnostic's sample."""
+    """csrc/log_probe.cu == torch.log(x) * LOG2E, bit for bit, over the
+    diagnostic's sample."""
     from lr2rmats_tpu_torch.diag.chain_parity import (log_probe,
                                                       log_probe_reference,
                                                       probe_sample)
     x = torch.from_numpy(probe_sample()[1]).to(dev)
     before = _build.LAUNCHES["log_probe"]
-    got, got2 = log_probe(x), log_probe(x, log2=True)
-    assert _build.LAUNCHES["log_probe"] == before + 2
+    got = log_probe(x)
+    assert _build.LAUNCHES["log_probe"] == before + 1
     assert torch.equal(got, log_probe_reference(x))
-    assert torch.equal(got2, torch.log2(x))
 
 
 def test_chain_dp_refuses_a_window_it_cannot_hold(dev):
@@ -589,9 +587,8 @@ def test_pipeline_two_processes_two_cards(dev, tmp_path):
 
 
 def test_pipeline_one_process_every_card(dev, tmp_path, monkeypatch):
-    """run_pipeline(device="cuda") in one process on a machine with several
-    cards splits the chain launches over every card and gathers the final
-    merge's candidates over them: the reference host pipeline's bytes."""
+    """run_pipeline(devices=every card) in one process splits the chain
+    launches over every card: the reference host pipeline's bytes."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two cards")
     from lr2rmats_tpu_torch._reference import parallel_module
@@ -603,9 +600,10 @@ def test_pipeline_one_process_every_card(dev, tmp_path, monkeypatch):
     for var in ("LR2RMATS_DEVICE_JUNCTIONS", "LR2RMATS_DEVICE_SEED",
                 "LR2RMATS_DEVICE_SJCOUNT"):
         monkeypatch.setenv(var, "1")
-    _build.reset_launches()
-    run_pipeline(pipeline_config(data, tmp_path / "port"), device="cuda")
     n_cards = torch.cuda.device_count()
+    _build.reset_launches()
+    run_pipeline(pipeline_config(data, tmp_path / "port"), device="cuda",
+                 devices=[f"cuda:{i}" for i in range(n_cards)])
     assert sorted(_build.CARD_LAUNCHES) == list(range(n_cards))
     assert pipeline_outputs(tmp_path / "port") == \
         pipeline_outputs(tmp_path / "ref")
