@@ -23,20 +23,20 @@ exits non-zero):
      lookup, junction counts) against their host versions, host-clock
      times;
   4. slice 1: TorchBatchAligner(device="cuda").align_seqset_packed on the
-     bench.py workload (20 Mb genome, ONT profile, seed 123, batch 1536)
-     then emit_sam; the same seqset through the reference package's host
-     backend (BatchAligner(backend="host"), which imports no jax); the SAM
-     bytes and accuracy must be identical;
+     bench.py workload (lr2rmats_tpu_torch/synth.py, the same bytes: 20 Mb
+     genome, ONT profile, seed 123, batch 1536) then emit_sam; the same
+     seqset through the port's host backend (BatchAligner, backend "host");
+     the SAM bytes and accuracy must be identical;
   5. slice 2: the same with the device junction DP and the device seed
      lookup (junction_backend="device", seed_lookup=True); SAM identical
      to the host backend;
-  6. pipeline: scripts/simulate.py at its defaults (12 Mb genome, 200
-     genes, 20000 long reads, 50000 short pairs, seed 7), then
-     `python -m lr2rmats_tpu_torch run` (its main, in this process) with
-     LR2RMATS_DEVICE_JUNCTIONS=1, LR2RMATS_DEVICE_SEED=1 and
-     LR2RMATS_DEVICE_SJCOUNT=1, and the reference's
-     run_pipeline(use_tpu=False); every file under output/, the SAM, the
-     BED and the STARSJ table must be byte-identical;
+  6. pipeline: the scripts/simulate.py dataset at its defaults (synth.py:
+     12 Mb genome, 200 genes, 20000 long reads, 50000 short pairs, seed
+     7), then `python -m lr2rmats_tpu_torch run` (its main, in this
+     process) with LR2RMATS_DEVICE_JUNCTIONS=1, LR2RMATS_DEVICE_SEED=1 and
+     LR2RMATS_DEVICE_SJCOUNT=1, and the port's `run --cpu` with the three
+     switches off; every file under output/, the SAM, the BED and the
+     STARSJ table must be byte-identical;
   7. multi-process: (a) a world-1 process group (gloo for the CPU, NCCL for
      the card) and make_mesh(1, 1, "cuda"); sharded_align_step on the bench
      index and the first batch's reads (Q=128 minimizers, 4 hits per seed,
@@ -45,12 +45,13 @@ exits non-zero):
      into two samples (halves, each with all short pairs) through two
      `python -m lr2rmats_tpu_torch run` processes of one group on the card
      with the three device switches; updated.gtf and every per-sample
-     output equal the reference's host pipeline on the same lists; (c) two
+     output equal the port's one-process `run --cpu` (switches off) on the
+     same lists; (c) two
      processes, each holding one hash range of the bench index
      (ShardedMinimizerIndex.build(local_shard=pid)), align 768 bench reads
      each in lockstep through the collective lookup with
      TorchBatchAligner(device="cuda"); the primaries equal the
-     single-process full-index host run.  Both processes of (b) and (c)
+     single-process full-index host backend run.  Both processes of (b) and (c)
      share the one card; their payloads travel over gloo;
   8. the DP-only chain kernel, the diagnostic and the one-process split:
      chain_dp against its plain version, exact, on the first batch's A=128
@@ -70,14 +71,21 @@ pipeline, mesh steps, diagnostic) and read after it (the processes of 7b
 and 7c start at 0 and report theirs); every kernel must have been launched
 by one of them.  Then one JSON line with the kernels,
 and the last line {"ok": true, "device": {...}}.  Work files go under
-build/chip_smoke/.
+build/chip_smoke/.  Each kernel's entry in the JSON line carries its bound
+(bound_ms: the larger of the bytes it must move over the card's memory
+rate and the operations these inputs need over its float32 rate,
+`bound`) and, where one PyTorch call computes the same function, that
+call's time (library_ms).
 
-Neither this script nor the port imports jax: it is blocked below.
+Neither this script nor the port imports jax or the reference package
+lr2rmats_tpu: both are blocked below, here and in the worker processes.
 """
 
 import sys
 
-sys.modules["jax"] = None  # any jax import in the slice fails loudly
+# any import of jax or of the reference package fails loudly
+sys.modules["jax"] = None
+sys.modules["lr2rmats_tpu"] = None
 
 import argparse
 import json
@@ -103,10 +111,72 @@ MESH_READS, MESH_Q, MESH_H, MESH_H_WIDE = 1536, 128, 4, 8
 CHAIN_DP_RANDOM = ((1024, 256), (4096, 32))      # (A, B)
 LOOKUP_READS, LOOKUP_BATCH = 768, 256
 GROUP_TIMEOUT_S = 300
+# the bound of a kernel: the larger of the bytes it must move over the
+# H100's HBM rate and the operations its inputs need over the float32 rate
+# outside the tensor cores (NVIDIA's data sheet, SXM, 700 W; the integer
+# operations of these kernels are counted at the same rate)
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+# operations per unit of work, counted from each kernel's inner loop
+CHAIN_STEP_OPS = 20      # one predecessor step of the chain DP (chain.cu)
+SHIFT_CELL_OPS = 9       # one band cell of the shift DP (shift_dp.cu)
+COMBINE_CELL_OPS = 15    # one (j, cl, cr) candidate of combine.cu
+HAMMING_BASE_OPS = 2     # compare and count per base (hamming.cu)
+LOG_PROBE_OPS = 2        # log and scale per element (log_probe.cu)
 
 
 def say(tag, msg):
     print(f"[{tag}] {msg}", flush=True)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by) of a kernel call moving n_bytes and doing
+    n_ops operations."""
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = n_ops / F32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def chain_steps(n, window: int) -> int:
+    """Predecessor steps of the chain DP over rows of n anchors: anchor i
+    examines min(i, window) predecessors."""
+    n = n.cpu().numpy().astype(np.int64)
+    full = np.minimum(n, window)
+    return int((full * (full - 1) // 2 + (n - full) * window).sum())
+
+
+def valid_bytes(n, *rows) -> int:
+    """Bytes of the first n[b] entries of row b of each [B, A] tensor: the
+    anchors a chain kernel reads."""
+    return int(n.long().sum()) * sum(t.element_size() for t in rows)
+
+
+def sector_bytes(lo, hi) -> int:
+    """Bytes of the distinct 32-byte sectors that the half-open ranges
+    [lo, hi) touch: the least a gather over them moves from memory."""
+    lo, hi = np.asarray(lo, np.int64), np.asarray(hi, np.int64)
+    keep = hi > lo
+    lo, hi = lo[keep] // 32, (hi[keep] + 31) // 32
+    if not len(lo):
+        return 0
+    base, size = int(lo.min()), int(hi.max() - lo.min()) + 1
+    edges = (np.bincount(lo - base, minlength=size)
+             - np.bincount(hi - base, minlength=size))
+    return int((np.cumsum(edges)[:-1] > 0).sum()) * 32
+
+
+def shift_dp_bytes(q, win, m, band, S) -> int:
+    """Bytes a shift DP must move: per gap the query rows a finite cell can
+    reach (j - 1 < m + 2B) and the window rows (< m + B), m, and all of S."""
+    mm = m.long()
+    rows_q = int((mm + 2 * band).clamp(max=q.shape[0]).sum())
+    rows_w = int((mm + band).clamp(max=win.shape[0]).sum())
+    return (rows_q * q.element_size() + rows_w * win.element_size()
+            + nbytes(m, S))
 
 
 def cuda_ms(fn, reps):
@@ -196,7 +266,9 @@ def check_chain(aligner, first_batch, dev):
         ms = cuda_ms(lambda: chain_dp_backtrack(q, g, n, kp, min_score), 20)
         plain_ms = cuda_ms(
             lambda: chain_dp_backtrack_reference(q, g, n, kp, min_score), 2)
-        times[(A, C)] = (ms, plain_ms)
+        work = (valid_bytes(n, q, g) + nbytes(n, mask, ps, ss),
+                CHAIN_STEP_OPS * chain_steps(n, kp.window))
+        times[(A, C)] = (ms, plain_ms, *work)
         say("kernels", f"chain_dp_backtrack A={A} B={C}: {n_real} workload "
             f"rows + {C - n_real} random rows, {int(n.sum())} anchors, "
             f"primaries {int((ps > 0).sum())}, secondaries "
@@ -244,7 +316,10 @@ def check_shift_dp(genome_codes, dev):
         worst = max(worst, err)
         ms = cuda_ms(lambda: shift_dp(tq, tw, tm, band), 20)
         plain_ms = cuda_ms(lambda: shift_dp_reference(tq, tw, tm, band), 2)
-        times[(band, M, G)] = (ms, plain_ms)
+        cells = int((tm.long() + 1).sum()) * (2 * band + 1)
+        times[(band, M, G)] = (ms, plain_ms,
+                               shift_dp_bytes(tq, tw, tm, band, got),
+                               SHIFT_CELL_OPS * cells)
         say("kernels", f"shift_dp band={band} M={M} G={G} {dt}: exact={same} "
             f"max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
         if not same:
@@ -277,7 +352,7 @@ def check_junction(aligner, first_batch, dev):
     versions on the junction gaps of the workload's first batch (the native
     collect pass of the device junction backend) plus random gaps."""
     import torch
-    from lr2rmats_tpu.native import get_lib
+    from lr2rmats_tpu_torch.native import get_lib
     from lr2rmats_tpu_torch.ops.junction import (B_DEF, combine,
                                                  combine_reference,
                                                  prepare_junction_batch)
@@ -336,7 +411,14 @@ def check_junction(aligner, first_batch, dev):
         raise AssertionError(
             f"combine kernel disagrees with the plain version at gap {g}: "
             f"{[x[g].item() for x in got]} vs {[x[g].item() for x in want]}")
-    return err, (ms, plain_ms)
+    # per gap the m+1 rows of SL and of SR a placement can use, the m+2B+1
+    # donor and acceptor classes, m / span / el / er and the outputs
+    W = 2 * B_DEF + 1
+    rows = int((t["m"].long() + 1).sum())
+    work = (2 * rows * W * 4 + 2 * (rows + 2 * B_DEF * G)
+            + nbytes(t["m"], t["span"], t["el"], t["er"], *got),
+            COMBINE_CELL_OPS * rows * W * W)
+    return err, (ms, plain_ms, *work)
 
 
 def check_hamming(codes, dev):
@@ -374,7 +456,15 @@ def check_hamming(codes, dev):
     if not same:
         raise AssertionError("hamming kernel disagrees with the plain "
                              "version")
-    return err, (ms, plain_ms)
+    # the distinct sectors of the genome windows and of the reads the
+    # candidates name, their offsets, rid, pos and the counts
+    end = off[rid + 1]
+    lo = np.clip(pos, 0, n - 1)
+    hi = np.clip(pos + (end - off[rid]) - 1, 0, n - 1) + 1
+    work = (sector_bytes(lo, hi) + sector_bytes(off[rid], end)
+            + 8 * len(np.union1d(rid, rid + 1)) + nbytes(*args[3:], got),
+            HAMMING_BASE_OPS * HAMMING_C * HAMMING_L)
+    return err, (ms, plain_ms, *work)
 
 
 def wall_ms(fn, reps):
@@ -480,22 +570,20 @@ def stage_walls(out):
 
 
 def run_pipeline_phase(here, dev, card):
-    """scripts/simulate.py at its defaults; the port's CLI with the three
-    device switches; the reference's host pipeline; byte comparison."""
+    """The scripts/simulate.py dataset at its defaults (synth.py); the
+    port's CLI with the three device switches on the card; the port's
+    `run --cpu` with them off; byte comparison."""
     import torch
-    from lr2rmats_tpu.index.minimizer import MinimizerIndex
-    from lr2rmats_tpu.io.fasta import Genome
-    from lr2rmats_tpu.pipeline.config import PipelineConfig, SampleReads
-    from lr2rmats_tpu_torch._reference import parallel_module
+    from lr2rmats_tpu_torch.index.minimizer import MinimizerIndex
+    from lr2rmats_tpu_torch.io.fasta import Genome
     from lr2rmats_tpu_torch.ops import _build
     from lr2rmats_tpu_torch.pipeline.cli import main as port_main
+    from lr2rmats_tpu_torch.synth import simulate_dataset
     work = os.path.join(here, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     data = os.path.join(work, "data")
     t0 = time.perf_counter()
-    subprocess.run([sys.executable, os.path.join(here, "scripts",
-                                                 "simulate.py"),
-                    "--out", data], check=True, capture_output=True)
+    simulate_dataset(data)
     sim_s = time.perf_counter() - t0
     files = {k: os.path.join(data, v) for k, v in (
         ("genome", "genome.fa"), ("gtf", "anno.gtf"), ("long", "long.fa"),
@@ -505,19 +593,21 @@ def run_pipeline_phase(here, dev, card):
     MinimizerIndex.build_or_load(Genome.load(files["genome"]),
                                  files["genome"] + ".tmmi.npz")
     index_s = time.perf_counter() - t0
-    say("pipeline", f"scripts/simulate.py defaults in {sim_s:.1f} s; index "
-        f"built in {index_s:.1f} s")
+    say("pipeline", f"simulate.py defaults (synth.py) in {sim_s:.1f} s; "
+        f"index built in {index_s:.1f} s")
+
+    def argv(out):
+        return ["run", "--genome", files["genome"], "--gtf", files["gtf"],
+                "--long-read", files["long"], "--short-read-1", files["s1"],
+                "--short-read-2", files["s2"], "--out-dir", out]
 
     port_out = os.path.join(work, "port")
-    argv = ["run", "--genome", files["genome"], "--gtf", files["gtf"],
-            "--long-read", files["long"], "--short-read-1", files["s1"],
-            "--short-read-2", files["s2"], "--out-dir", port_out]
     os.environ.update({v: "1" for v in SWITCHES})
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
     try:
         t0 = time.perf_counter()
-        rc = port_main(argv)
+        rc = port_main(argv(port_out))
         torch.cuda.synchronize(dev)
         port_s = time.perf_counter() - t0
     finally:
@@ -528,32 +618,29 @@ def run_pipeline_phase(here, dev, card):
     if rc != 0:
         raise AssertionError(f"python -m lr2rmats_tpu_torch run exited {rc}")
 
-    ref_out = os.path.join(work, "ref")
-    parallel_module("distributed")   # the reference pipeline imports it
-    from lr2rmats_tpu.pipeline.stages import run_pipeline as ref_pipeline
-    cfg = PipelineConfig(genome_fasta=files["genome"], gtf=files["gtf"])
-    cfg.samples["samp1"] = SampleReads(files["long"], files["s1"],
-                                       files["s2"])
-    cfg.out_dir = ref_out
+    cpu_out = os.path.join(work, "cpu")
     t0 = time.perf_counter()
-    ref_pipeline(cfg, use_tpu=False)
-    ref_s = time.perf_counter() - t0
+    rc = port_main(argv(cpu_out) + ["--cpu"])
+    cpu_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"python -m lr2rmats_tpu_torch run --cpu "
+                             f"exited {rc}")
 
-    got, want = pipeline_outputs(port_out), pipeline_outputs(ref_out)
+    got, want = pipeline_outputs(port_out), pipeline_outputs(cpu_out)
     diff = [k for k in sorted(set(got) | set(want))
             if got.get(k) != want.get(k)]
     if diff or len(want) != 11:
-        raise AssertionError(f"pipeline outputs differ from the reference: "
+        raise AssertionError(f"pipeline outputs differ from run --cpu: "
                              f"{diff} ({len(want)} files)")
-    line = {"port_wall_s": port_s, "reference_host_wall_s": ref_s,
+    line = {"port_wall_s": port_s, "cpu_wall_s": cpu_s,
             "port_stage_walls_s": stage_walls(port_out),
-            "reference_stage_walls_s": stage_walls(ref_out),
+            "cpu_stage_walls_s": stage_walls(cpu_out),
             "launches": launches, "peak_device_mb": peak_mb,
             "files_identical": sorted(got), "bytes": {
                 k: len(v) for k, v in got.items()},
             "card": card}
     say("pipeline", json.dumps(line))
-    say("pipeline", f"port {port_s:.2f} s (reference host {ref_s:.2f} s), "
+    say("pipeline", f"card {port_s:.2f} s (run --cpu {cpu_s:.2f} s), "
         f"{len(got)} files byte-identical, launches {launches}")
     return launches
 
@@ -721,12 +808,11 @@ def gathered_line(path):
 
 def run_two_process_pipeline(here, card):
     """7b: phase 6's data as two samples through a 2-process group of the
-    port's CLI on the card, against the reference host pipeline on the
-    same lists; returns the kernel launches of both processes."""
-    from lr2rmats_tpu.pipeline.config import PipelineConfig
-    from lr2rmats_tpu_torch._reference import parallel_module
-    parallel_module("distributed")   # the reference pipeline imports it
-    from lr2rmats_tpu.pipeline.stages import run_pipeline as ref_pipeline
+    port's CLI on the card, against the port's one-process pipeline on the
+    CPU (`run --cpu`, switches off) on the same lists; returns the kernel
+    launches of both processes."""
+    from lr2rmats_tpu_torch.pipeline.config import PipelineConfig
+    from lr2rmats_tpu_torch.pipeline.stages import run_pipeline
     work = os.path.join(here, "build", "chip_smoke")
     data = os.path.join(work, "data")
     longs = [os.path.join(work, f"long_{t}.fa") for t in "ab"]
@@ -748,11 +834,11 @@ def run_two_process_pipeline(here, card):
              "--coordinator", coord, "--num-processes", "2",
              "--process-id", str(pid)] for pid in range(2)]
     walls, _ = run_group(cmds, env, here)
-    ref_out = os.path.join(work, "multi_ref")
+    ref_out = os.path.join(work, "multi_cpu")
     cfg = PipelineConfig.from_read_lists(genome, gtf, long_list, short_list)
     cfg.out_dir = ref_out
     t0 = time.perf_counter()
-    ref_pipeline(cfg, use_tpu=False)
+    run_pipeline(cfg, device="cpu")
     ref_s = time.perf_counter() - t0
     got, want = ({f: open(os.path.join(o, "output", f), "rb").read()
                   for f in sorted(os.listdir(os.path.join(o, "output")))}
@@ -761,21 +847,22 @@ def run_two_process_pipeline(here, card):
             if got.get(k) != want.get(k)]
     if diff or len(want) != 15:
         raise AssertionError(f"2-process pipeline outputs differ from the "
-                             f"reference: {diff} ({len(want)} files)")
+                             f"one-process CPU run: {diff} ({len(want)} "
+                             "files)")
     logs = [os.path.join(out, "logs", f"pipeline.p{pid}.log")
             for pid in range(2)]
     launches = [log_launches(p) for p in logs]
     gather_b, gather_s = gathered_line(logs[0])
     line = {"long_reads_per_sample": n_reads,
-            "process_walls_s": walls, "reference_host_wall_s": ref_s,
+            "process_walls_s": walls, "cpu_one_process_wall_s": ref_s,
             "process_stage_walls_s": stage_walls(out),
-            "reference_stage_walls_s": stage_walls(ref_out),
+            "cpu_stage_walls_s": stage_walls(ref_out),
             "gathered_payload_bytes": gather_b, "gather_s": gather_s,
             "launches": launches, "files_identical": sorted(got),
             "card": card}
     say("multi", "pipeline " + json.dumps(line))
-    say("multi", f"2-process pipeline {max(walls):.2f} s (reference host, "
-        f"one process, {ref_s:.2f} s; not alternated), {len(got)} files "
+    say("multi", f"2-process pipeline {max(walls):.2f} s (run --cpu, one "
+        f"process, {ref_s:.2f} s; not alternated), {len(got)} files "
         f"byte-identical, {gather_b} payload bytes gathered in "
         f"{gather_s:.4f} s")
     for name in ("chain_dp_backtrack", "shift_dp", "combine", "hamming"):
@@ -786,8 +873,10 @@ def run_two_process_pipeline(here, card):
 
 _LOOKUP_WORKER = r"""
 import json, sys
+sys.modules["jax"] = None
+sys.modules["lr2rmats_tpu"] = None
 import numpy as np
-import bench
+from lr2rmats_tpu_torch import synth
 from lr2rmats_tpu_torch.ops import _build
 from lr2rmats_tpu_torch.align.batch import TorchBatchAligner
 from lr2rmats_tpu_torch.parallel.distributed import (end_multihost,
@@ -797,8 +886,8 @@ pid, coord, n_reads, n_use, batch, out = sys.argv[1:7]
 pid, n_reads, n_use, batch = int(pid), int(n_reads), int(n_use), int(batch)
 init_multihost(coord, 2, pid)
 rng = np.random.default_rng(%d)
-genome = bench.build_genome(int(%r * 1e6), rng)
-reads, _ = bench.simulate_reads(genome, n_reads, rng, profile="ont")
+genome = synth.build_genome(int(%r * 1e6), rng)
+reads, _ = synth.simulate_reads(genome, n_reads, rng, profile="ont")
 idx = ShardedMinimizerIndex.build(genome, 2, local_shard=pid)
 al = TorchBatchAligner(genome, index=idx, device="cuda",
                        junction_backend="host", seed_lookup=False)
@@ -823,9 +912,9 @@ end_multihost()
 
 def run_sharded_lookup(here, genome, full, names, reads, n_reads, card):
     """7c: the 2-process collective lookup on the card against the
-    single-process full-index host run; returns both processes'
+    single-process full-index host backend run; returns both processes'
     launches."""
-    from lr2rmats_tpu.align.batch import BatchAligner
+    from lr2rmats_tpu_torch.align.batch import BatchAligner
     work = os.path.join(here, "build", "chip_smoke")
     out = os.path.join(work, "lookup")
     coord = f"127.0.0.1:{free_port()}"
@@ -839,7 +928,7 @@ def run_sharded_lookup(here, genome, full, names, reads, n_reads, card):
     for pid in range(2):
         with open(f"{out}.{pid}.json") as f:
             res.append(json.load(f))
-    host = BatchAligner(genome, index=full, backend="host")
+    host = BatchAligner(genome, index=full)
     full_bytes = full.hashes.nbytes + full.pos.nbytes + full.strand.nbytes
     for pid in range(2):
         mine = list(range(pid, n_use, 2))
@@ -912,7 +1001,9 @@ def check_chain_dp(aligner, first_batch, mesh_rows, dev):
             fused = str(fused_same)
         ms = cuda_ms(lambda: chain_dp(q, g, n, kp), 20)
         plain_ms = cuda_ms(lambda: chain_dp_reference(q, g, n, kp), 1)
-        times[label] = (ms, plain_ms)
+        times[label] = (ms, plain_ms,
+                        valid_bytes(n, q, g) + nbytes(n, f, parent),
+                        CHAIN_STEP_OPS * chain_steps(n, kp.window))
         say("dp", f"chain_dp {label}: {int(n.sum())} anchors (widest row "
             f"{int(n.max())}); exact vs plain={same} max_abs_err={err}; "
             f"f / parent equal to chain_dp_backtrack: {fused}; kernel "
@@ -926,9 +1017,10 @@ def check_chain_dp(aligner, first_batch, mesh_rows, dev):
 
 def check_log_probe(dev):
     """8: the log probe kernel == its plain version, bit for bit, over the
-    diagnostic's sample; returns (max_abs_err, (ms, plain_ms))."""
+    diagnostic's sample; returns (max_abs_err, (ms, plain_ms, bytes, ops,
+    the time of the PyTorch call torch.log(x) * LOG2E))."""
     import torch
-    from lr2rmats_tpu_torch.diag.chain_parity import (log_probe,
+    from lr2rmats_tpu_torch.diag.chain_parity import (LOG2E, log_probe,
                                                       log_probe_reference,
                                                       probe_sample)
     from lr2rmats_tpu_torch.ops import _build
@@ -946,9 +1038,11 @@ def check_log_probe(dev):
         f"max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
         f"(20 back-to-back calls each; between the events around each "
         f"launch {ev['log_probe'] / 20:.4f} ms)")
+    lib_ms = cuda_ms(lambda: torch.log(x) * LOG2E, 20)
     if not same:
         raise AssertionError("log_probe disagrees with its plain version")
-    return err, (ms, plain_ms)
+    return err, (ms, plain_ms, nbytes(x, y), LOG_PROBE_OPS * x.numel(),
+                 lib_ms)
 
 
 def run_diag(dev):
@@ -969,7 +1063,7 @@ def run_diag(dev):
 
 def widest_row(al, reads):
     """Anchors of the widest row backend="pallas" chains on `reads`."""
-    from lr2rmats_tpu.align.batch import DEFAULT_BATCH
+    from lr2rmats_tpu_torch.align.batch import DEFAULT_BATCH
     return max(int(nn.max()) for off in range(0, len(reads), DEFAULT_BATCH)
                for _, _, _, nn in al._prepare_dispatch(al._batch_anchors(
                    reads[off: off + DEFAULT_BATCH]))["dp"])
@@ -998,9 +1092,9 @@ def main(argv=None) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
-        import bench
-        from lr2rmats_tpu.align.batch import BatchAligner
-        from lr2rmats_tpu_torch.align.batch import TorchBatchAligner
+        from lr2rmats_tpu_torch import synth
+        from lr2rmats_tpu_torch.align.batch import (BatchAligner,
+                                                    TorchBatchAligner)
         from lr2rmats_tpu_torch.ops import _build
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})",
@@ -1024,14 +1118,14 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say("build", line.strip())
 
-    # workload (bench.py's generator, seed 123)
+    # workload (bench.py's generator, in synth.py; seed 123)
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
-    genome = bench.build_genome(int(GENOME_MB * 1e6), rng)
-    reads, truths = bench.simulate_reads(genome, args.reads, rng,
+    genome = synth.build_genome(int(GENOME_MB * 1e6), rng)
+    reads, truths = synth.simulate_reads(genome, args.reads, rng,
                                          profile="ont")
     names = [f"read{i}" for i in range(len(reads))]
-    seqset = bench._pack(reads, names)
+    seqset = synth.pack_seqset(reads, names)
     aligner = TorchBatchAligner(genome, device="cuda",
                                 junction_backend="host", seed_lookup=False)
     say("setup", f"{GENOME_MB:g} Mb genome, {len(reads)} ONT reads, index "
@@ -1050,7 +1144,7 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     aligner.warmup_chain_shapes()
     aligner.align_batch(names[:64], reads[:64])
-    ref = BatchAligner(genome, index=aligner.index, backend="host")
+    ref = BatchAligner(genome, index=aligner.index)
     t0 = time.perf_counter()
     rb_ref = ref.align_seqset_packed(seqset)
     sam_ref = rb_ref.emit_sam(ref.refs)
@@ -1064,7 +1158,7 @@ def main(argv=None) -> int:
 
     def accuracy(r):
         prim = {a.qname: a for a in r.to_alnrecs() if not (a.flag & 0x100)}
-        exact, tp, n_sites = bench.accuracy_vs_truth(truths, names, prim)
+        exact, tp, n_sites = synth.accuracy_vs_truth(truths, names, prim)
         return (len(prim) / len(names), exact / len(names),
                 tp / max(n_sites, 1))
 
@@ -1208,45 +1302,39 @@ def main(argv=None) -> int:
             raise AssertionError(f"kernel {name} was not launched by a "
                                  "path run of phases 4-8")
 
-    chain_ms, chain_plain = chain_t[CHAIN_SHAPES[0]]
-    shift_ms, shift_plain = shift_t[SHIFT_SHAPES[1][:3]]
-    dp_ms, dp_plain = next(iter(dp_t.values()))     # first batch, A=128
+    def entry(name, source, replaces, err, t, lib_ms=None):
+        """One kernel of the JSON line; t = (ms, plain_ms, bytes, ops)."""
+        bound_ms, bound_by = bound(t[2], t[3])
+        return {"name": name, "route": "cuda",
+                "source": f"lr2rmats_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": total[name],
+                "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bytes": t[2], "operations": t[3], "library_ms": lib_ms}
+
+    kernels = [
+        entry("chain_dp_backtrack", "chain.cu",
+              "lr2rmats_tpu/ops/chain_pallas.py:39", chain_err,
+              chain_t[CHAIN_SHAPES[0]]),
+        entry("chain_dp", "chain_dp.cu", "lr2rmats_tpu/ops/chain_pallas.py:39",
+              max(dp_err, mesh_err, wide_err),
+              next(iter(dp_t.values()))),          # first batch, A=128
+        entry("shift_dp", "shift_dp.cu",
+              "lr2rmats_tpu/ops/splice_device.py:295", shift_err,
+              shift_t[SHIFT_SHAPES[1][:3]]),
+        entry("combine", "combine.cu",
+              "lr2rmats_tpu/ops/splice_device.py:152", comb_err, comb_t),
+        entry("hamming", "hamming.cu",
+              "lr2rmats_tpu/junctions/sjcount_device.py:69", ham_err, ham_t),
+        entry("log_probe", "log_probe.cu", "scripts/diag_chain_pallas.py:98",
+              probe_err, probe_t[:4], lib_ms=probe_t[4]),
+    ]
+    for k in kernels:
+        say("bound", f"{k['name']}: {k['ms']:.4f} ms against a bound of "
+            f"{k['bound_ms']:.4f} ms by {k['bound_by']} ({k['bytes']} bytes, "
+            f"{k['operations']} operations) on {card}")
     print(card, flush=True)
-    print(json.dumps({"kernels": [
-        {"name": "chain_dp_backtrack", "route": "cuda",
-         "source": "lr2rmats_tpu_torch/csrc/chain.cu",
-         "replaces": "lr2rmats_tpu/ops/chain_pallas.py:39",
-         "launches": total["chain_dp_backtrack"],
-         "max_abs_err": chain_err, "ms": chain_ms,
-         "plain_ms": chain_plain},
-        {"name": "chain_dp", "route": "cuda",
-         "source": "lr2rmats_tpu_torch/csrc/chain_dp.cu",
-         "replaces": "lr2rmats_tpu/ops/chain_pallas.py:39",
-         "launches": total["chain_dp"],
-         "max_abs_err": max(dp_err, mesh_err, wide_err), "ms": dp_ms,
-         "plain_ms": dp_plain},
-        {"name": "shift_dp", "route": "cuda",
-         "source": "lr2rmats_tpu_torch/csrc/shift_dp.cu",
-         "replaces": "lr2rmats_tpu/ops/splice_device.py:295",
-         "launches": total["shift_dp"],
-         "max_abs_err": shift_err, "ms": shift_ms, "plain_ms": shift_plain},
-        {"name": "combine", "route": "cuda",
-         "source": "lr2rmats_tpu_torch/csrc/combine.cu",
-         "replaces": "lr2rmats_tpu/ops/splice_device.py:152",
-         "launches": total["combine"],
-         "max_abs_err": comb_err, "ms": comb_t[0], "plain_ms": comb_t[1]},
-        {"name": "hamming", "route": "cuda",
-         "source": "lr2rmats_tpu_torch/csrc/hamming.cu",
-         "replaces": "lr2rmats_tpu/junctions/sjcount_device.py:69",
-         "launches": total["hamming"],
-         "max_abs_err": ham_err, "ms": ham_t[0], "plain_ms": ham_t[1]},
-        {"name": "log_probe", "route": "cuda",
-         "source": "lr2rmats_tpu_torch/csrc/log_probe.cu",
-         "replaces": "scripts/diag_chain_pallas.py:98",
-         "launches": total["log_probe"],
-         "max_abs_err": probe_err, "ms": probe_t[0],
-         "plain_ms": probe_t[1]},
-    ]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,1 +1,2 @@
-"""Aligner layer of the port: the batched aligner and the junction polish."""
+"""Aligner layer of the port: chaining, extension, records, the batched
+aligners and the junction polish."""

@@ -33,8 +33,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from lr2rmats_tpu.align.chain import ChainParams
-
+from ..align.chain import ChainParams
 from ..device import resolve_device
 from ..ops import _build
 from ..ops.chain import (K_MAX_A, chain_dp, chain_dp_backtrack,

@@ -1,1 +1,1 @@
-"""Seed lookup of the port (the index table resident on the device)."""
+"""The minimizer index (host) and its lookup on the device."""

@@ -17,18 +17,28 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from lr2rmats_tpu.index.seed_device import DeviceSeedLookup, _next_pow2
-
 from ..device import resolve_device
 
 _PAD = (1 << 31) - 1      # above every 2k-bit hash: lo == hi == n
+
+
+def _next_pow2(n: int, floor: int = 4096) -> int:
+    return 1 << max(int(n - 1).bit_length(), floor.bit_length() - 1)
 
 
 class TorchSeedLookup:
     """searchsorted (lo, hi) ranges against a device-resident hash table;
     drop-in for `MinimizerIndex.lookup`.  Counts its calls and wall."""
 
-    supports = staticmethod(DeviceSeedLookup.supports)
+    @staticmethod
+    def supports(index) -> bool:
+        """2*k <= 31 (the masked hashes fit int32) and an int32-addressable
+        flat table; sharded indexes (parallel/shard_index.py) hold no flat
+        `.hashes` table and keep their own lookup."""
+        hashes = getattr(index, "hashes", None)
+        return (hashes is not None
+                and 2 * int(index.k) <= 31
+                and len(hashes) < (1 << 31) - 1)
 
     def __init__(self, index, device="cuda"):
         if not self.supports(index):

@@ -1,1 +1,2 @@
-"""Short-read junction counting of the port (verify and counts on the device)."""
+"""Junction extraction from alignments and short-read junction counting
+(verify and counts on the device)."""

@@ -28,8 +28,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from lr2rmats_tpu.align.chain import ChainParams
-
+from ..align.chain import ChainParams
 from . import _build
 
 NEG = -1e18

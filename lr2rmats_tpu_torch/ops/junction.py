@@ -295,7 +295,7 @@ def recover_ops(ref: np.ndarray, gaps, placements, B: int = B_DEF):
     """(left_ops, intron_len, right_ops, vote, score) per found gap, as
     refine_splice_indel would give it, from the native cell traceback;
     None for gaps not found (reference splice_device.recover_ops)."""
-    from lr2rmats_tpu.native import get_lib
+    from ..native import get_lib
     score, bj, bcl, bcr, vote, found = placements
     lib = get_lib()
     results: List[Optional[tuple]] = [None] * len(gaps)
@@ -303,7 +303,7 @@ def recover_ops(ref: np.ndarray, gaps, placements, B: int = B_DEF):
     if not sel:
         return results
     if lib is None:
-        from lr2rmats_tpu.align.splice import refine_splice_indel_np
+        from ..align.splice import refine_splice_indel_np
         for g in sel:
             qg, lr, rr = gaps[g][:3]
             el = gaps[g][3] if len(gaps[g]) > 3 else 0

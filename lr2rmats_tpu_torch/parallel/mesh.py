@@ -27,8 +27,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from lr2rmats_tpu.align.chain import ChainParams
-
+from ..align.chain import ChainParams
 from ..ops.chain import (NEG, chain_dp, chain_dp_reference,
                          chain_params_for_kernel)
 

@@ -1,23 +1,27 @@
-"""Hash-range-sharded minimizer index with its multi-process arm on the
-port's process group.
+"""Hash-range-sharded minimizer index, in one process or across a
+torch.distributed process group.
 
-`ShardedMinimizerIndex` subclasses the reference's
-(lr2rmats_tpu/parallel/shard_index.py) and overrides only the two places
-that reach the reference's `.distributed` module:
+Counterpart of lr2rmats_tpu/parallel/shard_index.py.  The hash-sorted
+table is partitioned by hash % n (minimizer hashes are window minima and
+skew low, so contiguous ranges would not balance; the mod of a
+murmur-mixed hash does).  Every hash lives in exactly one shard and the
+per-shard radix sort is stable, so each query's hit list is the unsharded
+table's and sharded runs give the same bytes at any shard count.
 
-  * `build(..., local_shard=sid)`: this process extracts only its hash
-    range, and the occurrence histogram is summed over the process group
-    so that the cap equals the unsharded build's;
-  * `_lookup_distributed`: the collective lookup.  Every process
-    all-gathers the batch's query hashes, answers those in its range, and
-    the hits come back in a second all-gather, in the reference's v2 frame
-    format and through the native `gather_hits_c` / `scatter_hits_c`.
+Two modes:
 
-Both go through parallel/distributed.py `gather_blobs`.  The in-process
-arm (all shards resident) and everything else is inherited.  As in the
-reference, every process calls the collective lookup in lockstep from one
-thread: drive batches with `dispatch_batch` / `finish_batch`, not
-`align_seqset_packed` (which refuses a `local_only` index).
+  * in-process: all shards are resident; `lookup` routes each query hash
+    to its shard and returns ranges into the concatenated table;
+  * multi-process (`build(..., local_shard=sid)`): each process builds and
+    holds only its hash range, and the occurrence histogram is summed over
+    the group so the cap equals the unsharded build's.  `lookup_collective`
+    is then a collective: every process all-gathers the batch's query
+    hashes, answers those in its range, and the hits come back in a second
+    all-gather (frame format below, native `gather_hits_c` /
+    `scatter_hits_c`), both through parallel/distributed.py
+    `gather_blobs`.  Every process calls it in lockstep from one thread:
+    drive batches with `dispatch_batch` / `finish_batch`, not
+    `align_seqset_packed` (which refuses a `local_only` index).
 """
 
 from __future__ import annotations
@@ -28,31 +32,79 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from lr2rmats_tpu.index.minimizer import K_DEFAULT, W_DEFAULT, MinimizerIndex
-from lr2rmats_tpu.native import get_lib
-from lr2rmats_tpu.utils import log
-
-from .._reference import parallel_module
+from ..index.minimizer import K_DEFAULT, W_DEFAULT, MinimizerIndex
+from ..native import get_lib
+from ..utils import log
 from .distributed import gather_blobs, multihost_info
 
-_ref = parallel_module("shard_index")
-shard_of = _ref.shard_of
+
+def shard_of(h: np.ndarray, n_shards: int, k: int = 0) -> np.ndarray:
+    """Shard id per hash: h % n.  Minimizer hashes are window MINIMA and
+    skew low, so contiguous hash ranges never balance; the mod of a
+    murmur-mixed hash does, while still keeping every copy of a hash in
+    exactly one shard (the property lookup routing and bit-identity rely
+    on).  k is unused (kept for signature stability)."""
+    return (h % np.uint64(n_shards)).astype(np.int64)
 
 
-class ShardedMinimizerIndex(_ref.ShardedMinimizerIndex):
-    """The reference's sharded index, collective over the port's group."""
+class ShardedMinimizerIndex:
+    """Duck-type of MinimizerIndex (lookup / pos / strand / chrom_offsets /
+    global_to_chrom / names / k / w) over hash-range shards."""
+
+    def __init__(self, shards: List[Optional[MinimizerIndex]],
+                 local_only: bool = False):
+        """shards: per-range MinimizerIndex; in multi-process mode pass
+        None for every range this host does not hold and local_only=True."""
+        self.n_shards = len(shards)
+        self.shards = shards
+        self.local_only = local_only
+        some = next(s for s in shards if s is not None)
+        self.k, self.w = some.k, some.w
+        self.chrom_offsets = some.chrom_offsets
+        self.names = some.names
+        self.max_occ = some.max_occ
+        if not local_only:
+            # ranges returned by lookup() index the concatenated table
+            self._base = np.zeros(self.n_shards + 1, np.int64)
+            for i, s in enumerate(shards):
+                self._base[i + 1] = self._base[i] + len(s.hashes)
+            self.pos = np.concatenate([s.pos for s in shards])
+            self.strand = np.concatenate([s.strand for s in shards])
+        else:
+            self.pos = np.zeros(0, np.int64)
+            self.strand = np.zeros(0, np.int8)
+        # collective-lookup observability (multi-process mode)
+        self.coll_stats = {"gather_q_s": 0.0, "lookup_s": 0.0,
+                           "gather_a_s": 0.0, "scatter_s": 0.0,
+                           "q_mb": 0.0, "a_mb": 0.0}
+        self._pos_is_u32: Optional[bool] = None
 
     @classmethod
     def build(cls, genome, n_shards: int, k: int = K_DEFAULT,
               w: int = W_DEFAULT, max_occ_frac: float = 2e-4,
               min_max_occ: int = 50, local_shard: Optional[int] = None
               ) -> "ShardedMinimizerIndex":
-        """local_shard=None builds every shard in this process (the
-        reference's code); local_shard=sid builds only that shard, with
-        the occurrence histogram summed over the process group."""
+        """local_shard=None builds every shard in this process (raw shard
+        tables and histograms, then the globally reduced occurrence cap);
+        local_shard=sid builds only that shard, with the occurrence
+        histogram summed over the process group, so the cap equals the
+        unsharded build's."""
         if local_shard is None:
-            return super().build(genome, n_shards, k, w, max_occ_frac,
-                                 min_max_occ)
+            raw = [MinimizerIndex._extract_sorted(genome, k, w, (i, n_shards))
+                   for i in range(n_shards)]
+            ghist = np.sum([r[3] for r in raw], axis=0)
+            cap = MinimizerIndex.occ_cap_from_hist(ghist, max_occ_frac,
+                                                   min_max_occ)
+            shards = []
+            for (h, p, s, hist) in raw:
+                h, p, s = MinimizerIndex._apply_cap(h, p, s, cap, hist)
+                shards.append(MinimizerIndex(k, w, h, p, s,
+                                             genome.offsets.copy(),
+                                             list(genome.names), cap))
+            log("index", "sharded index built: %d shards, %d minimizers "
+                "(max_occ=%d)", n_shards,
+                sum(len(s.hashes) for s in shards), cap)
+            return cls(shards)
         h, p, s, hist = MinimizerIndex._extract_sorted(
             genome, k, w, (local_shard, n_shards))
         if multihost_info()[1] > 1:
@@ -72,6 +124,53 @@ class ShardedMinimizerIndex(_ref.ShardedMinimizerIndex):
         out = cls(shards, local_only=True)
         out.local_shard = local_shard
         return out
+
+    # -------------------------------------------------------------- lookup
+    def lookup_collective(self, qhashes: np.ndarray, n_threads: int = 4
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+        """Batch-level lookup.  In multi-process mode this is a COLLECTIVE
+        (all hosts must call it in lockstep, once per batch; pad with empty
+        query arrays when a host runs out of batches).  align.batch's
+        seeding path calls this one."""
+        if self.local_only:
+            return self._lookup_distributed(qhashes, n_threads)
+        return self.lookup(qhashes, n_threads)
+
+    def lookup(self, qhashes: np.ndarray, n_threads: int = 4
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Point lookup.  In-process mode: exact routed lookup.  In
+        multi-process mode: answers from the LOCAL shard only — used by the
+        rare per-read terminal-exon rescue (align/aligner.py _seed_clip),
+        which cannot be a collective; primary seeding stays exact via
+        lookup_collective.  Rescue may therefore miss remote-range seeds in
+        the multi-process arm (measured: no accuracy movement on the
+        GRCh38 dry run)."""
+        if self.local_only:
+            shard = self.shards[self.local_shard]
+            own = shard_of(np.asarray(qhashes, np.uint64), self.n_shards,
+                           self.k)
+            lo = np.zeros(len(qhashes), np.int64)
+            hi = np.zeros(len(qhashes), np.int64)
+            m = own == self.local_shard
+            if m.any():
+                l, h = shard.lookup(np.ascontiguousarray(qhashes[m]),
+                                    n_threads)
+                lo[m], hi[m] = l, h
+            self.pos = shard.pos
+            self.strand = shard.strand
+            return lo, hi
+        sid = shard_of(np.asarray(qhashes, np.uint64), self.n_shards,
+                       self.k)
+        lo = np.zeros(len(qhashes), np.int64)
+        hi = np.zeros(len(qhashes), np.int64)
+        for i, s in enumerate(self.shards):
+            m = sid == i
+            if not m.any():
+                continue
+            l, h = s.lookup(np.ascontiguousarray(qhashes[m]), n_threads)
+            lo[m] = l + self._base[i]
+            hi[m] = h + self._base[i]
+        return lo, hi
 
     def _answer(self, qh: np.ndarray, src: int, n_threads: int) -> bytes:
         """One v2 frame: header "<qqq" (src, m, pos_is_u32), idx int32[m],
@@ -182,3 +281,12 @@ class ShardedMinimizerIndex(_ref.ShardedMinimizerIndex):
                 self.strand[dest] = pstr
         st["scatter_s"] += time.perf_counter() - t0
         return lo, hi
+
+    def global_to_chrom(self, gpos: np.ndarray
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        tid = np.searchsorted(self.chrom_offsets, gpos, side="right") - 1
+        return tid.astype(np.int32), (gpos - self.chrom_offsets[tid])
+
+    def resident_bytes(self) -> int:
+        return sum(s.hashes.nbytes + s.pos.nbytes + s.strand.nbytes
+                   for s in self.shards if s is not None)

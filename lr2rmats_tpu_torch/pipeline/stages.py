@@ -5,8 +5,9 @@ port's device layer: the align stage runs `TorchBatchAligner` on `device`
 (its junction backend and seed lookup chosen by LR2RMATS_DEVICE_JUNCTIONS
 and LR2RMATS_DEVICE_SEED) and the sj_count stage runs the port's
 `count_junction_support` (its device counter chosen by
-LR2RMATS_DEVICE_SJCOUNT).  The stage graph, the artifact checkpoints and
-every host stage are the reference's own functions:
+LR2RMATS_DEVICE_SJCOUNT).  The stage graph, the artifact checkpoints
+(`_fresh` / `_done`, copied here from the reference) and every host stage
+are the port's copies of the reference's functions:
 
   index        : load the genome
   align        : long-read spliced alignment -> SAM + BED, filter
@@ -28,9 +29,8 @@ chain launch of the align stage is split over them (align/batch.py), as
 the reference shards its chain dispatch over the local devices of its one
 process; polish, junctions and sj_count stay on `device`.  The final
 merge's unique-gtf runs without the reference's device gather of its
-candidates (`device_gather=False`): that gather (`mesh_exchange_candidates`
-over one process's devices) sends the candidates through the devices and
-back unchanged to validate its data plane, so it changes no output.
+candidates: that gather sends the candidates through the devices and back
+unchanged to validate its data plane, so it changes no output.
 
 Left out with respect to the reference: the device-init probe and the link
 preflip (they guarded a remote TPU link), the JAX compile cache and the
@@ -51,31 +51,171 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from lr2rmats_tpu.align.aligner import AlignParams
-from lr2rmats_tpu.index.minimizer import MinimizerIndex
-from lr2rmats_tpu.io.fasta import Genome, read_fasta
-from lr2rmats_tpu.io.gtf import ChrNames, read_anno_trans
-from lr2rmats_tpu.io.sam import sam_header
-from lr2rmats_tpu.io.sj import write_sj_star
-from lr2rmats_tpu.native import get_lib
-from lr2rmats_tpu.pipeline.commands import (cmd_filter, cmd_unique_gtf,
-                                            cmd_update_gtf)
-from lr2rmats_tpu.pipeline.config import PipelineConfig
-from lr2rmats_tpu.pipeline.stages import (_done, _ensure_dirs, _fresh,
-                                          write_bed12, write_bed12_batch)
-from lr2rmats_tpu.report.sortgtf import sort_gtf_file
-from lr2rmats_tpu.transcript.filter import FilterParams
-from lr2rmats_tpu.transcript.model import UpdateGtfParams
-from lr2rmats_tpu.utils import Timer, log
-from lr2rmats_tpu.utils.log import set_log_stream
-
+from ..align.aligner import AlignParams
 from ..align.batch import TorchBatchAligner
 from ..device import resolve_device
+from ..index.minimizer import MinimizerIndex
+from ..io.fasta import Genome, read_fasta
+from ..io.gtf import ChrNames, read_anno_trans
+from ..io.sam import open_alignments, sam_header
+from ..io.sj import write_sj_star
 from ..junctions.sjcount import count_junction_support
+from ..native import get_lib
 from ..ops import _build
 from ..parallel.distributed import (barrier, gather_indexed_payloads,
                                     multihost_info, owned_indices)
 from ..parallel.shard_index import ShardedMinimizerIndex
+from ..report.sortgtf import sort_gtf_file
+from ..report.summary import _str_blob
+from ..transcript.exon_chain import gen_exons
+from ..transcript.filter import FilterParams
+from ..transcript.model import UpdateGtfParams
+from ..utils import Timer, log
+from ..utils.log import set_log_stream
+from .commands import cmd_filter, cmd_unique_gtf, cmd_update_gtf
+from .config import PipelineConfig
+
+
+def _sig(path: str):
+    st = os.stat(path)
+    return [st.st_size, st.st_mtime_ns]
+
+
+def _fresh(out: str, *inputs: str) -> bool:
+    """Artifact checkpoint: output exists and its recorded input signatures
+    (size + ns mtime, kept in a `<out>.inputs.json` sidecar written by
+    _done) still match.  Snakemake-style semantics without the
+    second-granularity mtime race of the round-1 `<=` comparison.
+
+    The sidecar is REQUIRED: it is written only after the stage completed,
+    so a crash-truncated in-place output (kill -9 / OOM / disk-full
+    mid-write) is never accepted as fresh — the old mtime fallback
+    accepted exactly those (partial output newer than its inputs).  A
+    recorded input that has since been deleted also marks the stage stale
+    (the rerun then fails loudly on the missing input, the Snakemake
+    behavior being mirrored)."""
+    if not os.path.exists(out):
+        return False
+    side = out + ".inputs.json"
+    if not os.path.exists(side):
+        return False
+    try:
+        with open(side) as f:
+            rec = json.load(f)
+    except Exception:
+        return False
+    for i in inputs:
+        if not os.path.exists(i):
+            return False
+        if rec.get(i) != _sig(i):
+            return False
+    return True
+
+
+def _done(out: str, *inputs: str) -> None:
+    """Record input signatures for _fresh."""
+    with open(out + ".inputs.json", "w") as f:
+        json.dump({i: _sig(i) for i in inputs if os.path.exists(i)}, f)
+
+
+def _ensure_dirs(out_dir: str) -> None:
+    for d in ("alignment", "gtf", "output", "logs", "benchmark"):
+        os.makedirs(os.path.join(out_dir, d), exist_ok=True)
+
+
+def write_bed12_batch(rb, refs, bed_path: str) -> bool:
+    """BED12 export straight from the packed RecordBatch — no SAM re-parse
+    (that cost ~16 s at 500k reads).  Exon segmentation is the gen_exons
+    (min_exon=1, min_intron=1, max_delet=inf) case: only N ops split.
+    Returns False (caller falls back to the SAM path) when the native
+    formatter is unavailable or a zero-length exon edge case appears."""
+    lib = get_lib()
+    if lib is None or rb.n == 0:
+        return False
+    keep = np.nonzero((rb.flag & 0x4) == 0)[0]
+    if not len(keep):
+        open(bed_path, "w").close()
+        return True
+    n_all = rb.n
+    counts_all = np.diff(rb.cig_offs)
+    rep = np.repeat(np.arange(n_all), counts_all)
+    op = (rb.cig_buf & 0xF).astype(np.int64)
+    ln = (rb.cig_buf >> 4).astype(np.int64)
+    refc = np.where((op == 0) | (op == 2) | (op == 3) | (op == 7) |
+                    (op == 8), ln, 0)
+    cs = np.cumsum(refc)
+    base = np.concatenate([[0], cs])[rb.cig_offs[:-1]]
+    within_after = cs - base[rep]
+    within_before = within_after - refc
+    is_n = op == 3
+    nN = np.bincount(rep[is_n], minlength=n_all).astype(np.int64)
+    # restrict to kept (mapped) rows
+    nNk = nN[keep]
+    ne = nNk + 1
+    eoff = np.zeros(len(keep) + 1, np.int64)
+    np.cumsum(ne, out=eoff[1:])
+    tot = int(eoff[-1])
+    starts_rel = np.zeros(tot, np.int64)
+    ends_rel = np.zeros(tot, np.int64)
+    # ragged scatter of N-op boundaries (N ops are in record order)
+    kept_mask = np.zeros(n_all, bool)
+    kept_mask[keep] = True
+    kept_row = np.full(n_all, -1, np.int64)
+    kept_row[keep] = np.arange(len(keep))
+    idxN = np.nonzero(is_n & kept_mask[rep])[0]
+    rN_rec = kept_row[rep[idxN]]
+    cumN = np.zeros(len(keep), np.int64)
+    np.cumsum(nNk, out=cumN[0:])  # cumN[i] = #N in rows 0..i
+    startN = cumN - nNk
+    rank = np.arange(len(idxN)) - startN[rN_rec]
+    starts_rel[eoff[rN_rec] + rank + 1] = within_after[idxN]
+    ends_rel[eoff[rN_rec] + rank] = within_before[idxN]
+    last_op = rb.cig_offs[1:] - 1
+    tot_ref = np.where(counts_all > 0, within_after[np.maximum(last_op, 0)],
+                       0)
+    ends_rel[eoff[1:] - 1] = tot_ref[keep]
+    sizes = ends_rel - starts_rel
+    if (sizes <= 0).any():
+        return False     # zero-length exon quirk: use the reference path
+    nb = _str_blob([rb.qname[i] for i in keep], len(keep))
+    cb = _str_blob([r[0] for r in refs], len(refs))
+    if nb is None or cb is None:
+        return False
+    start0 = rb.pos[keep].astype(np.int64)
+    end = start0 + tot_ref[keep]
+    cap = int(nb[1][-1] + len(keep) * 140 + tot * 26) + 64
+    out = np.empty(cap, np.uint8)
+    wrote = int(lib.format_bed12_c(
+        nb[0], nb[1], cb[0], cb[1],
+        np.ascontiguousarray(rb.tid[keep], np.int32),
+        np.ascontiguousarray((rb.flag[keep] & 0x10) != 0).view(np.uint8),
+        np.ascontiguousarray(rb.mapq[keep], np.int32),
+        start0, end, sizes, starts_rel, eoff,
+        len(keep), out, cap))
+    if wrote < 0:
+        return False
+    with open(bed_path, "wb") as f:
+        f.write(out[:wrote].tobytes())
+    return True
+
+
+def write_bed12(sam_path: str, bed_path: str) -> None:
+    """BED12 export of spliced alignments (the `bedtools bamtobed -bed12`
+    role, reference Snakefile:63)."""
+    refs, _, records = open_alignments(sam_path)
+    with open(bed_path, "w") as f:
+        for r in records:
+            if r.is_unmapped:
+                continue
+            s, e, _ = gen_exons(r, 1, 1, 1 << 30)  # strand comes from r.is_rev
+            chrom = refs[r.tid][0]
+            start0 = int(s[0]) - 1
+            end = int(e[-1])
+            sizes = ",".join(str(int(b - a + 1)) for a, b in zip(s, e)) + ","
+            starts = ",".join(str(int(a - 1) - start0) for a in s) + ","
+            strand = "-" if r.is_rev else "+"
+            f.write(f"{chrom}\t{start0}\t{end}\t{r.qname}\t{r.mapq}\t{strand}"
+                    f"\t{start0}\t{end}\t0\t{len(s)}\t{sizes}\t{starts}\n")
 
 
 class _Tee:
@@ -422,8 +562,7 @@ def run_pipeline(cfg: PipelineConfig,
             _concat(gtf_novel_paths, tmp)
             uniq_gtf = A("gtf", "uniq.gtf")
             cmd_unique_gtf(tmp, UpdateGtfParams(input_mode="gtf"),
-                           hdr_bam=first_sam, out_path=uniq_gtf,
-                           device_gather=False)
+                           hdr_bam=first_sam, out_path=uniq_gtf)
             _concat((cfg.gtf, uniq_gtf), tmp)
             sort_gtf_file(tmp, updated_gtf)
             os.remove(tmp)

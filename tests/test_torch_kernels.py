@@ -1,6 +1,9 @@
 """Hand-written CUDA kernels against their plain PyTorch versions on the
 card (marker `cuda`; each test skips where torch.cuda.is_available() is
-false).  This file imports no jax, so it also runs on a machine without it:
+false).  This file imports neither jax nor the reference package, so it
+also runs on a machine without them; the card's outputs are held to the
+port's own host backend and CPU runs (the CPU tests link those to the
+reference):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_kernels.py
@@ -28,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from lr2rmats_tpu.align.chain import ChainParams
+from lr2rmats_tpu_torch.align.chain import ChainParams
 from lr2rmats_tpu_torch.align.polish import polish_best_pair
 from lr2rmats_tpu_torch.ops import _build
 from lr2rmats_tpu_torch.ops.chain import (chain_dp, chain_dp_backtrack,
@@ -78,17 +81,18 @@ def junction_gaps(seed, n, kind="random", ref_len=100_000):
 
 def sim_dataset(out, long_reads=300, short_pairs=1200, genes=10,
                 genome_mb=0.5):
-    """scripts/simulate.py at a small size (seed 7); returns out."""
-    subprocess.run([sys.executable, str(REPO / "scripts" / "simulate.py"),
-                    "--out", str(out), "--genome-mb", str(genome_mb),
-                    "--genes", str(genes), "--long-reads", str(long_reads),
-                    "--short-pairs", str(short_pairs)],
-                   check=True, capture_output=True)
+    """The scripts/simulate.py dataset at a small size (seed 7), made by
+    the port's generator (lr2rmats_tpu_torch/synth.py, the same bytes);
+    returns out."""
+    from lr2rmats_tpu_torch.synth import simulate_dataset
+    simulate_dataset(str(out), genome_mb=genome_mb, genes=genes,
+                     long_reads=long_reads, short_pairs=short_pairs)
     return out
 
 
 def pipeline_config(data, out):
-    from lr2rmats_tpu.pipeline.config import PipelineConfig, SampleReads
+    from lr2rmats_tpu_torch.pipeline.config import (PipelineConfig,
+                                                    SampleReads)
     cfg = PipelineConfig(genome_fasta=f"{data}/genome.fa",
                          gtf=f"{data}/anno.gtf")
     cfg.samples["samp1"] = SampleReads(f"{data}/long.fa",
@@ -106,6 +110,21 @@ def pipeline_outputs(out):
         out / "alignment" / f"samp1.{n}" for n in
         ("minimap.sam", "minimap.bed", "STARSJ.out.tab")]
     return {str(f.relative_to(out)): f.read_bytes() for f in files}
+
+
+SWITCHES = ("LR2RMATS_DEVICE_JUNCTIONS", "LR2RMATS_DEVICE_SEED",
+            "LR2RMATS_DEVICE_SJCOUNT")
+
+
+def host_pipeline(cfg):
+    """The port's host pipeline: `run --cpu` with the three device switches
+    off (the yardstick of the card runs here)."""
+    from lr2rmats_tpu_torch.pipeline.stages import run_pipeline
+    saved = {v: os.environ.pop(v) for v in SWITCHES if v in os.environ}
+    try:
+        return run_pipeline(cfg, device="cpu")
+    finally:
+        os.environ.update(saved)
 
 
 @pytest.fixture
@@ -248,15 +267,10 @@ def test_refused_launch_raises(dev):
 
 
 def test_slice_on_card_matches_host_backend(dev):
-    import bench
-    from lr2rmats_tpu.align.batch import BatchAligner
-    from lr2rmats_tpu_torch.align.batch import TorchBatchAligner
-    rng = np.random.default_rng(123)
-    g = bench.build_genome(2_000_000, rng)
-    reads, _ = bench.simulate_reads(g, 512, rng, profile="ont")
-    seqset = bench._pack(reads, [f"read{i}" for i in range(len(reads))])
-    ref = BatchAligner(g, backend="host")
-    port = TorchBatchAligner.from_jax_aligner(ref, device="cuda")
+    from lr2rmats_tpu_torch.align.batch import BatchAligner, TorchBatchAligner
+    g, seqset = _bench_slice()
+    ref = BatchAligner(g)
+    port = TorchBatchAligner(g, index=ref.index, device="cuda")
     port.warmup_chain_shapes()
     got = port.align_seqset_packed(seqset).emit_sam(port.refs)
     assert port.stats["chain_kernel_launches"] > 0
@@ -265,20 +279,21 @@ def test_slice_on_card_matches_host_backend(dev):
 
 
 def _bench_slice(n_reads=512):
-    import bench
+    """A 2 Mb bench.py workload (the port's generator, seed 123)."""
+    from lr2rmats_tpu_torch import synth
     rng = np.random.default_rng(123)
-    g = bench.build_genome(2_000_000, rng)
-    reads, _ = bench.simulate_reads(g, n_reads, rng, profile="ont")
-    return g, bench._pack(reads, [f"read{i}" for i in range(len(reads))])
+    g = synth.build_genome(2_000_000, rng)
+    reads, _ = synth.simulate_reads(g, n_reads, rng, profile="ont")
+    return g, synth.pack_seqset(reads,
+                                [f"read{i}" for i in range(len(reads))])
 
 
 def test_pallas_backend_slice_on_card_matches_host_backend(dev):
     """backend="pallas": every row through csrc/chain_dp.cu, host
-    backtrack; the SAM of the reference's host backend."""
-    from lr2rmats_tpu.align.batch import BatchAligner
-    from lr2rmats_tpu_torch.align.batch import TorchBatchAligner
+    backtrack; the SAM of the host backend."""
+    from lr2rmats_tpu_torch.align.batch import BatchAligner, TorchBatchAligner
     g, seqset = _bench_slice()
-    ref = BatchAligner(g, backend="host")
+    ref = BatchAligner(g)
     port = TorchBatchAligner(g, index=ref.index, device="cuda",
                              backend="pallas")
     port.warmup_chain_shapes()
@@ -363,8 +378,8 @@ def test_hamming_kernel_matches_plain(dev):
 
 
 def test_seed_lookup_card_matches_cpu(dev):
-    from lr2rmats_tpu.index.minimizer import MinimizerIndex
-    from lr2rmats_tpu.io.fasta import Genome
+    from lr2rmats_tpu_torch.index.minimizer import MinimizerIndex
+    from lr2rmats_tpu_torch.io.fasta import Genome
     from lr2rmats_tpu_torch.index.seed_device import TorchSeedLookup
     rng = np.random.default_rng(3)
     codes = rng.integers(0, 4, 500_000).astype(np.uint8)
@@ -382,15 +397,11 @@ def test_seed_lookup_card_matches_cpu(dev):
 
 def test_pipeline_on_card_matches_host_reference(dev, tmp_path, monkeypatch):
     """The port's pipeline with the three device switches on the card gives
-    the reference host pipeline's bytes."""
-    from lr2rmats_tpu_torch._reference import parallel_module
+    the bytes of its host pipeline (`run --cpu`, switches off)."""
     from lr2rmats_tpu_torch.pipeline.stages import run_pipeline
-    parallel_module("distributed")  # the reference pipeline imports it
-    from lr2rmats_tpu.pipeline.stages import run_pipeline as ref_pipeline
     data = sim_dataset(tmp_path / "data")
-    ref_pipeline(pipeline_config(data, tmp_path / "ref"), use_tpu=False)
-    for var in ("LR2RMATS_DEVICE_JUNCTIONS", "LR2RMATS_DEVICE_SEED",
-                "LR2RMATS_DEVICE_SJCOUNT"):
+    host_pipeline(pipeline_config(data, tmp_path / "ref"))
+    for var in SWITCHES:
         monkeypatch.setenv(var, "1")
     before = dict(_build.LAUNCHES)
     run_pipeline(pipeline_config(data, tmp_path / "port"), device="cuda")
@@ -533,14 +544,11 @@ def test_mesh_step_multi_rank_nccl(dev, tmp_path):
 def test_pipeline_two_processes_two_cards(dev, tmp_path):
     """`python -m lr2rmats_tpu_torch run` as two processes of one group,
     one per card (cuda:{process_id % device_count}), with the three device
-    switches: the reference host pipeline's outputs, byte for byte."""
+    switches: the one-process host pipeline's outputs, byte for byte."""
     import socket
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two cards")
-    from lr2rmats_tpu.pipeline.config import PipelineConfig
-    from lr2rmats_tpu_torch._reference import parallel_module
-    parallel_module("distributed")  # the reference pipeline imports it
-    from lr2rmats_tpu.pipeline.stages import run_pipeline as ref_pipeline
+    from lr2rmats_tpu_torch.pipeline.config import PipelineConfig
     data = sim_dataset(tmp_path / "data")
     with open(data / "long.fa") as f:
         lines = f.read().splitlines(keepends=True)
@@ -556,7 +564,7 @@ def test_pipeline_two_processes_two_cards(dev, tmp_path):
              str(tmp_path / "long.list"), str(tmp_path / "short.list")]
     cfg = PipelineConfig.from_read_lists(*lists)
     cfg.out_dir = str(tmp_path / "ref")
-    ref_pipeline(cfg, use_tpu=False)
+    host_pipeline(cfg)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         coord = f"127.0.0.1:{s.getsockname()[1]}"
@@ -588,17 +596,13 @@ def test_pipeline_two_processes_two_cards(dev, tmp_path):
 
 def test_pipeline_one_process_every_card(dev, tmp_path, monkeypatch):
     """run_pipeline(devices=every card) in one process splits the chain
-    launches over every card: the reference host pipeline's bytes."""
+    launches over every card: the host pipeline's bytes."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two cards")
-    from lr2rmats_tpu_torch._reference import parallel_module
     from lr2rmats_tpu_torch.pipeline.stages import run_pipeline
-    parallel_module("distributed")  # the reference pipeline imports it
-    from lr2rmats_tpu.pipeline.stages import run_pipeline as ref_pipeline
     data = sim_dataset(tmp_path / "data")
-    ref_pipeline(pipeline_config(data, tmp_path / "ref"), use_tpu=False)
-    for var in ("LR2RMATS_DEVICE_JUNCTIONS", "LR2RMATS_DEVICE_SEED",
-                "LR2RMATS_DEVICE_SJCOUNT"):
+    host_pipeline(pipeline_config(data, tmp_path / "ref"))
+    for var in SWITCHES:
         monkeypatch.setenv(var, "1")
     n_cards = torch.cuda.device_count()
     _build.reset_launches()

@@ -147,11 +147,11 @@ def test_packed_alignment_refuses_local_index(two_process):
 def test_in_process_build_is_the_reference():
     """local_shard=None is the reference's in-process arm: every shard
     resident, the same tables and cap."""
-    from lr2rmats_tpu_torch._reference import parallel_module
+    from lr2rmats_tpu.parallel.shard_index import \
+        ShardedMinimizerIndex as RefShardedMinimizerIndex
     genome = _genome(seed=9, mb=0.5, repeats=40)[0]
     port = ShardedMinimizerIndex.build(genome, 3)
-    ref = parallel_module("shard_index").ShardedMinimizerIndex.build(
-        genome, 3)
+    ref = RefShardedMinimizerIndex.build(genome, 3)
     assert type(port) is ShardedMinimizerIndex and not port.local_only
     assert port.max_occ == ref.max_occ
     for a, b in zip(port.shards, ref.shards):
