@@ -75,7 +75,13 @@ build/chip_smoke/.  Each kernel's entry in the JSON line carries its bound
 (bound_ms: the larger of the bytes it must move over the card's memory
 rate and the operations these inputs need over its float32 rate,
 `bound`) and, where one PyTorch call computes the same function, that
-call's time (library_ms).
+call's time (library_ms).  A kernel's `ms` times 20 calls back to back as
+the host issues them (lr2rmats_tpu_torch/diag/measure.py `cuda_ms`), so a
+kernel shorter than a wrapper call's Python is timed at the host's launch
+rate; its `queued_ms` times the same 20 calls queued behind a spin kernel
+(`queued_ms` there), the kernels alone.  The shift_dp entry also lists its
+two main-path shapes under "shapes": the polish shape of the entry itself
+and the junction flank at the first batch's G, with the flank's own bound.
 
 Neither this script nor the port imports jax or the reference package
 lr2rmats_tpu: both are blocked below, here and in the worker processes.
@@ -179,40 +185,6 @@ def shift_dp_bytes(q, win, m, band, S) -> int:
             + nbytes(m, S))
 
 
-def cuda_ms(fn, reps):
-    """Mean device milliseconds of fn() over reps calls (CUDA events)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(reps):
-        fn()
-    e.record()
-    torch.cuda.synchronize()
-    return s.elapsed_time(e) / reps
-
-
-def random_anchor_rows(rng, B, A):
-    """Anchor rows shaped like tests/test_chain_jax.py:random_anchor_rows:
-    2-3 exon chains plus 20% noise anchors, sorted by (rpos, qpos)."""
-    qp = np.zeros((B, A), np.int32)
-    rp = np.zeros((B, A), np.int32)
-    ns = np.zeros(B, np.int32)
-    for b in range(B):
-        n = int(rng.integers(5, A + 1))
-        q = np.sort(rng.integers(0, 2000, n))
-        r = q + 10_000
-        for ia in rng.integers(0, 2000, 2):
-            r = np.where(q > ia, r + int(rng.integers(50, 5000)), r)
-        noise = rng.random(n) < 0.2
-        r = np.where(noise, rng.integers(0, 60_000, n), r)
-        order = np.lexsort((q, r))
-        qp[b, :n], rp[b, :n], ns[b] = q[order], r[order], n
-    return qp, rp, ns
-
-
 def card_line():
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -223,8 +195,9 @@ def card_line():
 def batch_rows(prep, A, C, rng):
     """(qpos, rpos, n, rows of the batch): the first-batch rows of the
     A-anchor chunk, the rest of C rows random."""
+    from lr2rmats_tpu_torch.diag.measure import anchor_rows
     real = next((c for c in prep["chunks"] if c[1] == A), None)
-    qp, gp, nn = random_anchor_rows(rng, C, A)
+    qp, gp, nn = anchor_rows(rng, C, A)
     n_real = 0
     if real is not None:
         n_real = len(real[0])
@@ -237,6 +210,7 @@ def batch_rows(prep, A, C, rng):
 def check_chain(aligner, first_batch, dev):
     """Chain kernel == plain version at the main-path chunk shapes."""
     import torch
+    from lr2rmats_tpu_torch.diag.measure import cuda_ms, queued_ms
     from lr2rmats_tpu_torch.ops.chain import (chain_dp_backtrack,
                                               chain_dp_backtrack_reference,
                                               chain_dp_reference,
@@ -264,16 +238,19 @@ def check_chain(aligner, first_batch, dev):
                 and torch.equal(mask, rmask) and torch.equal(ps, rps)
                 and torch.equal(ss, rss))
         ms = cuda_ms(lambda: chain_dp_backtrack(q, g, n, kp, min_score), 20)
+        queued = queued_ms(
+            lambda: chain_dp_backtrack(q, g, n, kp, min_score), 20)
         plain_ms = cuda_ms(
             lambda: chain_dp_backtrack_reference(q, g, n, kp, min_score), 2)
         work = (valid_bytes(n, q, g) + nbytes(n, mask, ps, ss),
                 CHAIN_STEP_OPS * chain_steps(n, kp.window))
-        times[(A, C)] = (ms, plain_ms, *work)
+        times[(A, C)] = (ms, queued, plain_ms, *work)
         say("kernels", f"chain_dp_backtrack A={A} B={C}: {n_real} workload "
             f"rows + {C - n_real} random rows, {int(n.sum())} anchors, "
             f"primaries {int((ps > 0).sum())}, secondaries "
             f"{int((ss > 0).sum())}; exact={same} max_abs_err={err} "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
+            f"kernel {ms:.4f} ms (queued {queued:.4f}), plain "
+            f"{plain_ms:.2f} ms")
         if not same:
             bad = (parent != rparent).any(1) | (mask != rmask).any(1) | \
                 (ps != rps) | (ss != rss) | (f != rf).any(1)
@@ -282,12 +259,28 @@ def check_chain(aligner, first_batch, dev):
                 f"chain kernel disagrees with the plain version at A={A}, "
                 f"row {b}: f {f[b].tolist()} vs {rf[b].tolist()}, parent "
                 f"{parent[b].tolist()} vs {rparent[b].tolist()}")
+    # on the last shape's rows: the inline cost (STAR's 1M intron cap puts
+    # the dd range past the cost table), a refill of the table for other
+    # parameters, and the main path's parameters again
+    for label, kq in (("max_intron=1000000", kp._replace(max_intron=10**6)),
+                      ("gap_scale x2", kp._replace(gap_scale=2 * kp.gap_scale)),
+                      ("default", kp)):
+        got = chain_dp_backtrack(q, g, n, kq, min_score, dp_out=True)
+        want = (*chain_dp_backtrack_reference(q, g, n, kq, min_score),
+                *chain_dp_reference(q, g, n, kq))
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        say("kernels", f"chain_dp_backtrack A={A} B={C} {label}: "
+            f"exact={same}")
+        if not same:
+            raise AssertionError(f"chain kernel disagrees with the plain "
+                                 f"version at {label}")
     return worst, times
 
 
 def check_shift_dp(genome_codes, dev):
     """Shift-DP kernel == plain version at the main-path shapes."""
     import torch
+    from lr2rmats_tpu_torch.diag.measure import cuda_ms, queued_ms
     from lr2rmats_tpu_torch.ops.splice import shift_dp, shift_dp_reference
     rng = np.random.default_rng(SEED + 1)
     worst, times = 0.0, {}
@@ -315,13 +308,15 @@ def check_shift_dp(genome_codes, dev):
         same = torch.equal(got, want)
         worst = max(worst, err)
         ms = cuda_ms(lambda: shift_dp(tq, tw, tm, band), 20)
+        queued = queued_ms(lambda: shift_dp(tq, tw, tm, band), 20)
         plain_ms = cuda_ms(lambda: shift_dp_reference(tq, tw, tm, band), 2)
         cells = int((tm.long() + 1).sum()) * (2 * band + 1)
-        times[(band, M, G)] = (ms, plain_ms,
+        times[(band, M, G)] = (ms, queued, plain_ms,
                                shift_dp_bytes(tq, tw, tm, band, got),
                                SHIFT_CELL_OPS * cells)
         say("kernels", f"shift_dp band={band} M={M} G={G} {dt}: exact={same} "
-            f"max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
+            f"max_abs_err={err} kernel {ms:.4f} ms (queued {queued:.4f}), plain "
+            f"{plain_ms:.2f} ms")
         if not same:
             raise AssertionError(f"shift_dp kernel disagrees with the plain "
                                  f"version at band={band} M={M} G={G}")
@@ -352,6 +347,7 @@ def check_junction(aligner, first_batch, dev):
     versions on the junction gaps of the workload's first batch (the native
     collect pass of the device junction backend) plus random gaps."""
     import torch
+    from lr2rmats_tpu_torch.diag.measure import cuda_ms, queued_ms
     from lr2rmats_tpu_torch.native import get_lib
     from lr2rmats_tpu_torch.ops.junction import (B_DEF, combine,
                                                  combine_reference,
@@ -386,20 +382,22 @@ def check_junction(aligner, first_batch, dev):
     fin = want[5]
     err = float((got[0] - want[0])[fin].abs().max()) if bool(fin.any()) \
         else 0.0
-    shift_ms = cuda_ms(lambda: [shift_dp(t[q], t[w], t["m"], B_DEF)
-                                for q, w in flanks], 20) / 2
+    both = lambda: [shift_dp(t[q], t[w], t["m"], B_DEF) for q, w in flanks]
+    shift_ms = cuda_ms(both, 20) / 2
+    shift_queued = queued_ms(both, 20) / 2
     shift_plain = cuda_ms(lambda: [shift_dp_reference(t[q], t[w], t["m"],
                                                       B_DEF)
                                    for q, w in flanks], 1) / 2
     ms = cuda_ms(lambda: combine(*args), 20)
+    queued = queued_ms(lambda: combine(*args), 20)
     plain_ms = cuda_ms(lambda: combine_reference(*args), 2)
     say("kernels", f"shift_dp band=4 M=64 G={G} int32 (both junction "
-        f"flanks): exact={shift_same} kernel {shift_ms:.4f} ms, plain "
-        f"{shift_plain:.2f} ms per flank")
+        f"flanks): exact={shift_same} kernel {shift_ms:.4f} ms (queued "
+        f"{shift_queued:.4f}), plain {shift_plain:.2f} ms per flank")
     say("kernels", f"combine G={G}: {n_real} gaps of the first batch + "
         f"{G - n_real} random, found {int(fin.sum())}; exact(score, j, cl, "
-        f"cr, vote, found)={same} max_abs_err={err} kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.2f} ms")
+        f"cr, vote, found)={same} max_abs_err={err} kernel {ms:.4f} ms "
+        f"(queued {queued:.4f}), plain {plain_ms:.2f} ms")
     if not shift_same:
         raise AssertionError("junction shift_dp disagrees with the plain "
                              "version")
@@ -418,13 +416,19 @@ def check_junction(aligner, first_batch, dev):
     work = (2 * rows * W * 4 + 2 * (rows + 2 * B_DEF * G)
             + nbytes(t["m"], t["span"], t["el"], t["er"], *got),
             COMBINE_CELL_OPS * rows * W * W)
-    return err, (ms, plain_ms, *work)
+    # one flank's shift DP, as check_shift_dp counts it
+    flank = (shift_ms, shift_queued, shift_plain,
+             shift_dp_bytes(t["q"], t["lwin"], t["m"], B_DEF, S[0]),
+             SHIFT_CELL_OPS * rows * W)
+    return err, (ms, queued, plain_ms, *work), (f"band={B_DEF} M={S[0].shape[0] - 1} "
+                                        f"G={G} int32", flank)
 
 
 def check_hamming(codes, dev):
     """hamming kernel == plain version: HAMMING_C candidates of
     HAMMING_L-base reads against the genome, 1% past the buffer end."""
     import torch
+    from lr2rmats_tpu_torch.diag.measure import cuda_ms, queued_ms
     from lr2rmats_tpu_torch.junctions.sjcount_device import (
         hamming, hamming_reference)
     rng = np.random.default_rng(SEED + 3)
@@ -449,10 +453,12 @@ def check_hamming(codes, dev):
     same = torch.equal(got, want)
     err = float((got - want).abs().max())
     ms = cuda_ms(lambda: hamming(*args), 20)
+    queued = queued_ms(lambda: hamming(*args), 20)
     plain_ms = cuda_ms(lambda: hamming_reference(*args), 2)
     say("kernels", f"hamming C={HAMMING_C} L={HAMMING_L} over a {n}-base "
         f"buffer ({int(past.sum())} windows past its end): exact={same} "
-        f"max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
+        f"max_abs_err={err} kernel {ms:.4f} ms (queued {queued:.4f}), plain "
+        f"{plain_ms:.2f} ms")
     if not same:
         raise AssertionError("hamming kernel disagrees with the plain "
                              "version")
@@ -464,7 +470,7 @@ def check_hamming(codes, dev):
     work = (sector_bytes(lo, hi) + sector_bytes(off[rid], end)
             + 8 * len(np.union1d(rid, rid + 1)) + nbytes(*args[3:], got),
             HAMMING_BASE_OPS * HAMMING_C * HAMMING_L)
-    return err, (ms, plain_ms, *work)
+    return err, (ms, queued, plain_ms, *work)
 
 
 def wall_ms(fn, reps):
@@ -704,6 +710,7 @@ def check_mesh_step(aligner, reads, dev, card, hits):
     chain_dp ms, the anchor rows (qpos, rpos, n) the step chained)."""
     import torch
     import torch.distributed as dist
+    from lr2rmats_tpu_torch.diag.measure import cuda_ms
     from lr2rmats_tpu_torch.ops import _build
     from lr2rmats_tpu_torch.parallel import mesh as mesh_mod
     from lr2rmats_tpu_torch.parallel.distributed import backend
@@ -963,6 +970,8 @@ def check_chain_dp(aligner, first_batch, mesh_rows, dev):
     CHAIN_DP_RANDOM, and == the fused kernel's f / parent where A <=
     K_MAX_A; returns (max_abs_err, {label: (ms, plain_ms)})."""
     import torch
+    from lr2rmats_tpu_torch.diag.measure import (anchor_rows, cuda_ms,
+                                                 queued_ms)
     from lr2rmats_tpu_torch.ops.chain import (K_MAX_A, chain_dp,
                                               chain_dp_backtrack,
                                               chain_dp_reference,
@@ -978,7 +987,7 @@ def check_chain_dp(aligner, first_batch, mesh_rows, dev):
     cases.append((f"7a mesh rows A={mq.shape[1]} B={len(mn)}", (mq, mg, mn)))
     rng = np.random.default_rng(SEED + 5)
     for A, B in CHAIN_DP_RANDOM:
-        cases.append((f"random A={A} B={B}", random_anchor_rows(rng, B, A)))
+        cases.append((f"random A={A} B={B}", anchor_rows(rng, B, A)))
     worst, times = 0.0, {}
     for label, arrays in cases:
         q, g, n = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -1000,14 +1009,15 @@ def check_chain_dp(aligner, first_batch, mesh_rows, dev):
             fused_same = torch.equal(f, ff) and torch.equal(parent, fparent)
             fused = str(fused_same)
         ms = cuda_ms(lambda: chain_dp(q, g, n, kp), 20)
+        queued = queued_ms(lambda: chain_dp(q, g, n, kp), 20)
         plain_ms = cuda_ms(lambda: chain_dp_reference(q, g, n, kp), 1)
-        times[label] = (ms, plain_ms,
+        times[label] = (ms, queued, plain_ms,
                         valid_bytes(n, q, g) + nbytes(n, f, parent),
                         CHAIN_STEP_OPS * chain_steps(n, kp.window))
         say("dp", f"chain_dp {label}: {int(n.sum())} anchors (widest row "
             f"{int(n.max())}); exact vs plain={same} max_abs_err={err}; "
             f"f / parent equal to chain_dp_backtrack: {fused}; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.2f} ms")
+            f"{ms:.4f} ms (queued {queued:.4f}), plain {plain_ms:.2f} ms")
         if not (same and fused_same):
             bad = (f != rf).any(1) | (parent != rparent).any(1)
             b = int(torch.nonzero(bad)[0]) if bool(bad.any()) else -1
@@ -1017,9 +1027,10 @@ def check_chain_dp(aligner, first_batch, mesh_rows, dev):
 
 def check_log_probe(dev):
     """8: the log probe kernel == its plain version, bit for bit, over the
-    diagnostic's sample; returns (max_abs_err, (ms, plain_ms, bytes, ops,
-    the time of the PyTorch call torch.log(x) * LOG2E))."""
+    diagnostic's sample; returns (max_abs_err, (ms, queued_ms, plain_ms,
+    bytes, ops, the time of the PyTorch call torch.log(x) * LOG2E))."""
     import torch
+    from lr2rmats_tpu_torch.diag.measure import cuda_ms, queued_ms
     from lr2rmats_tpu_torch.diag.chain_parity import (LOG2E, log_probe,
                                                       log_probe_reference,
                                                       probe_sample)
@@ -1030,19 +1041,21 @@ def check_log_probe(dev):
     fin = torch.isfinite(want)       # the zero padding gives -inf in both
     err = float((y - want)[fin].abs().max())
     ms = cuda_ms(lambda: log_probe(x), 20)
+    queued = queued_ms(lambda: log_probe(x), 20)
     plain_ms = cuda_ms(lambda: log_probe_reference(x), 20)
     with _build.timing() as ev:     # events on the stream around each launch
         for _ in range(20):
             log_probe(x)
     say("diag", f"log_probe x [{x.shape[0]}, {x.shape[1]}]: exact={same} "
-        f"max_abs_err={err} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"max_abs_err={err} kernel {ms:.4f} ms (queued {queued:.4f}), "
+        f"plain {plain_ms:.4f} ms "
         f"(20 back-to-back calls each; between the events around each "
         f"launch {ev['log_probe'] / 20:.4f} ms)")
     lib_ms = cuda_ms(lambda: torch.log(x) * LOG2E, 20)
     if not same:
         raise AssertionError("log_probe disagrees with its plain version")
-    return err, (ms, plain_ms, nbytes(x, y), LOG_PROBE_OPS * x.numel(),
-                 lib_ms)
+    return err, (ms, queued, plain_ms, nbytes(x, y),
+                 LOG_PROBE_OPS * x.numel(), lib_ms)
 
 
 def run_diag(dev):
@@ -1135,7 +1148,8 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     chain_err, chain_t = check_chain(aligner, reads[:1536], dev)
     shift_err, shift_t = check_shift_dp(genome.codes, dev)
-    comb_err, comb_t = check_junction(aligner, reads[:1536], dev)
+    comb_err, comb_t, (flank_shape, flank_t) = check_junction(
+        aligner, reads[:1536], dev)
     ham_err, ham_t = check_hamming(genome.codes, dev)
     check_torch_ops(aligner, reads[:1536], dev)
     say("kernels", f"phase wall {time.perf_counter() - t_phase:.1f} s")
@@ -1303,14 +1317,15 @@ def main(argv=None) -> int:
                                  "path run of phases 4-8")
 
     def entry(name, source, replaces, err, t, lib_ms=None):
-        """One kernel of the JSON line; t = (ms, plain_ms, bytes, ops)."""
-        bound_ms, bound_by = bound(t[2], t[3])
+        """One kernel of the JSON line; t = (ms, queued_ms, plain_ms, bytes,
+        ops)."""
+        bound_ms, bound_by = bound(t[3], t[4])
         return {"name": name, "route": "cuda",
                 "source": f"lr2rmats_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": total[name],
-                "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "bytes": t[2], "operations": t[3], "library_ms": lib_ms}
+                "max_abs_err": err, "ms": t[0], "queued_ms": t[1],
+                "plain_ms": t[2], "bound_ms": bound_ms, "bound_by": bound_by,
+                "bytes": t[3], "operations": t[4], "library_ms": lib_ms}
 
     kernels = [
         entry("chain_dp_backtrack", "chain.cu",
@@ -1327,12 +1342,27 @@ def main(argv=None) -> int:
         entry("hamming", "hamming.cu",
               "lr2rmats_tpu/junctions/sjcount_device.py:69", ham_err, ham_t),
         entry("log_probe", "log_probe.cu", "scripts/diag_chain_pallas.py:98",
-              probe_err, probe_t[:4], lib_ms=probe_t[4]),
+              probe_err, probe_t[:5], lib_ms=probe_t[5]),
     ]
+    # the junction flanks' shift DP: a second shape of the shift_dp entry
+    flank_bound, flank_by = bound(flank_t[3], flank_t[4])
+    polish_t = shift_t[SHIFT_SHAPES[1][:3]]
+    kernels[2]["shapes"] = [
+        {"shape": "band={} M={} G={} int8 (polish)".format(*SHIFT_SHAPES[1]),
+         "ms": polish_t[0], "queued_ms": polish_t[1]},
+        {"shape": f"{flank_shape} (junction flank)", "ms": flank_t[0],
+         "queued_ms": flank_t[1], "plain_ms": flank_t[2],
+         "bound_ms": flank_bound, "bound_by": flank_by, "bytes": flank_t[3],
+         "operations": flank_t[4]}]
     for k in kernels:
-        say("bound", f"{k['name']}: {k['ms']:.4f} ms against a bound of "
-            f"{k['bound_ms']:.4f} ms by {k['bound_by']} ({k['bytes']} bytes, "
-            f"{k['operations']} operations) on {card}")
+        say("bound", f"{k['name']}: {k['ms']:.4f} ms (queued "
+            f"{k['queued_ms']:.4f}) against a bound of {k['bound_ms']:.4f} "
+            f"ms by {k['bound_by']} ({k['bytes']} bytes, {k['operations']} "
+            f"operations) on {card}")
+    say("bound", f"shift_dp junction flank {flank_shape}: {flank_t[0]:.4f} "
+        f"ms (queued {flank_t[1]:.4f}) against a bound of {flank_bound:.4f} "
+        f"ms by {flank_by} ({flank_t[3]} bytes, {flank_t[4]} operations) on "
+        f"{card}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

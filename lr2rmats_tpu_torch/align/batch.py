@@ -58,7 +58,7 @@ import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, fields
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -957,6 +957,16 @@ class BatchAligner:
         chained = self._materialize_chains(rows, pending)
         return self._build_records(names, reads, rows, chained)
 
+    def finish_batch_packed(self, handle):
+        import time as _time
+        names, reads, rows, pending = handle
+        chained = self._materialize_chains(rows, pending)
+        t0 = _time.perf_counter()
+        out = self._build_packed(names, reads, rows, chained)
+        self.stats["build_s"] = (self.stats.get("build_s", 0.0) +
+                                 _time.perf_counter() - t0)
+        return out
+
     def align_seqset_packed(self, reads: SeqSet,
                             batch_size: int = DEFAULT_BATCH,
                             pipeline_depth: int = 2,
@@ -1039,6 +1049,14 @@ class BatchAligner:
             if n:
                 log("align", "junction consensus polish: %d re-placed", n)
         return rb
+
+    def align_seqset(self, reads: SeqSet, batch_size: int = DEFAULT_BATCH,
+                     pipeline_depth: int = 2,
+                     polish: Optional[bool] = None) -> Iterator[AlnRec]:
+        """Legacy per-record generator over `align_seqset_packed`."""
+        rb = self.align_seqset_packed(reads, batch_size, pipeline_depth,
+                                      polish)
+        yield from rb.to_alnrecs()
 
     def _polish(self, rb: RecordBatch) -> int:
         """The junction consensus polish of the whole seqset (host DP)."""

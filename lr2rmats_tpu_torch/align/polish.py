@@ -43,7 +43,7 @@ import torch
 
 from ..io.fasta import _COMP
 from ..io.sam import (FSECONDARY, FUNMAP, OP_D, OP_I, OP_M, OP_N, OP_S,
-                      _CONSUME)
+                      AlnRec, _CONSUME)
 from ..ops.splice import shift_dp
 from .records import RecordBatch
 from .splice import (GAP, MATCH, MISMATCH, NEG, _motif_bonus, _shift_dp,
@@ -152,6 +152,15 @@ def _support_batch(rb: RecordBatch, jt: dict, genome_codes: np.ndarray,
     np.add.at(sums, inv, w[voter])
     return {(int(t), int(d), int(a)): int(s)
             for (t, d, a), s in zip(uniq, sums)}
+
+
+def collect_junction_support(records, genome_codes: np.ndarray,
+                             chrom_offsets: np.ndarray
+                             ) -> Dict[Tuple[int, int, int], int]:
+    """AlnRec-list bridge over `_support_batch`."""
+    rb = RecordBatch.from_alnrecs(list(records))
+    return _support_batch(rb, _junction_table(rb), genome_codes,
+                          chrom_offsets)
 
 
 def consensus_winners(support: Dict[Tuple[int, int, int], int]
@@ -679,3 +688,20 @@ def polish_batch(rb: RecordBatch, genome_codes: np.ndarray,
             if changed_out is not None:
                 changed_out.append(ri)
     return n_fix
+
+
+def polish_records(records: List[AlnRec], genome_codes: np.ndarray,
+                   chrom_offsets: np.ndarray) -> int:
+    """AlnRec-list bridge over `polish_batch` (mutates records in place;
+    returns the number of junctions re-placed)."""
+    rb = RecordBatch.from_alnrecs(records)
+    changed: list = []
+    n = polish_batch(rb, genome_codes, chrom_offsets, changed_out=changed)
+    for i in changed:
+        rec = records[i]
+        rec.cigar = rb.cigar(i).copy()
+        if "NM" in rec.tags:
+            rec.tags["NM"] = int(rb.nm[i])
+        if "AS" in rec.tags:
+            rec.tags["AS"] = int(rb.score[i])
+    return n

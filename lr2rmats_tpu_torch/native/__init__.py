@@ -1,1 +1,1 @@
-from .lib import get_lib
+from .lib import get_lib, have_native

@@ -91,6 +91,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
         return _lib
 
 
+def have_native() -> bool:
+    return get_lib() is not None
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     """ctypes signatures of every entry point the package calls."""
     c_u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")

@@ -108,43 +108,49 @@ def _build(so: str) -> None:
     build_info["ptxas"] = "".join(reports)
 
 
-def _bind(lib: ctypes.CDLL) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    ll = ctypes.c_longlong
-    lib.lr2_chain_dp_backtrack.restype = i
-    lib.lr2_chain_dp_backtrack.argtypes = [
-        p, p, p, i, i,                      # qpos, rpos, n_anchor, B, A
-        i, i, i, i, i,                      # window, k, max_qgap,
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
+# argument types of each C entry point; each returns a cudaError_t as int
+SIGNATURES: Dict[str, List[object]] = {
+    "lr2_chain_dp_backtrack": [
+        _P, _P, _P, _I, _I,                 # qpos, rpos, n_anchor, B, A
+        _I, _I, _I, _I, _I,                 # window, k, max_qgap,
         #                                     max_intron, min_intron_gap
-        f, f, f, f,                         # gap_open, gap_scale,
+        _F, _F, _F, _F,                     # gap_open, gap_scale,
         #                                     intron_scale, min_score
-        p, p, p, p, p,                      # mask, ps, ss, f_out, parent_out
-        p]                                  # stream
-    lib.lr2_chain_dp.restype = i
-    lib.lr2_chain_dp.argtypes = [
-        p, p, p, i, i,                      # qpos, rpos, n_anchor, B, A
-        i, i, i, i, i,                      # window, k, max_qgap,
+        _P, _P, _P, _P, _P,                 # mask, ps, ss, f_out, parent_out
+        _P],                                # stream
+    "lr2_chain_dp": [
+        _P, _P, _P, _I, _I,                 # qpos, rpos, n_anchor, B, A
+        _I, _I, _I, _I, _I,                 # window, k, max_qgap,
         #                                     max_intron, min_intron_gap
-        f, f, f,                            # gap_open, gap_scale,
+        _F, _F, _F,                         # gap_open, gap_scale,
         #                                     intron_scale
-        p, p, p]                            # f_out, parent_out, stream
-    lib.lr2_shift_dp.restype = i
-    lib.lr2_shift_dp.argtypes = [p, p, p, p, i, i, i, i, p]
-    lib.lr2_combine.restype = i
-    lib.lr2_combine.argtypes = [
-        p, p, p, p, p, p, p, p,             # SL, SR, m, span, dok, aok, el, er
-        i, i, i, ll,                        # M, G, B, min_intron
-        p, p, p, p, p, p,                   # score, j, cl, cr, vote, found
-        p]                                  # stream
-    lib.lr2_hamming.restype = i
-    lib.lr2_hamming.argtypes = [
-        p, ll, p, p, p, p, ll, p,           # buf, n, comb, comb_off, rid,
+        _P, _P, _P],                        # f_out, parent_out, stream
+    "lr2_shift_dp": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "lr2_combine": [
+        _P, _P, _P, _P, _P, _P, _P, _P,     # SL, SR, m, span, dok, aok, el, er
+        _I, _I, _I, _LL,                    # M, G, B, min_intron
+        _P, _P, _P, _P, _P, _P,             # score, j, cl, cr, vote, found
+        _P],                                # stream
+    "lr2_hamming": [
+        _P, _LL, _P, _P, _P, _P, _LL, _P,   # buf, n, comb, comb_off, rid,
         #                                     pos, C, mm
-        p]                                  # stream
-    lib.lr2_log_probe.restype = i
-    lib.lr2_log_probe.argtypes = [p, p, ll, p]      # x, y, n, stream
-    lib.lr2_cuda_error_string.restype = ctypes.c_char_p
-    lib.lr2_cuda_error_string.argtypes = [i]
+        _P],                                # stream
+    "lr2_log_probe": [_P, _P, _LL, _P],     # x, y, n, stream
+}
+
+
+def bind(lib: ctypes.CDLL, names=None) -> None:
+    """Set the ctypes signatures of the entry points `names` (every one of
+    SIGNATURES and lr2_cuda_error_string by default) on `lib`."""
+    for name in SIGNATURES if names is None else names:
+        fn = getattr(lib, name)
+        fn.restype = _I
+        fn.argtypes = SIGNATURES[name]
+    if names is None or hasattr(lib, "lr2_cuda_error_string"):
+        lib.lr2_cuda_error_string.restype = ctypes.c_char_p
+        lib.lr2_cuda_error_string.argtypes = [_I]
 
 
 def load() -> ctypes.CDLL:
@@ -158,7 +164,7 @@ def load() -> ctypes.CDLL:
             else:
                 _build(so)
             lib = ctypes.CDLL(so)
-            _bind(lib)
+            bind(lib)
             _lib = lib
         return _lib
 

@@ -2,10 +2,11 @@
 
 Counterpart of lr2rmats_tpu/ops/splice_device.py (`_dp_kernel`, the Pallas
 kernel, and `_shift_dp_scan`, its XLA twin that the polish placement DP
-runs).  The kernel is `csrc/shift_dp.cu` (one thread per gap, templated on
-the band; its header says what bounds it and how the design answers);
-`shift_dp_reference` is the plain PyTorch version, step for step the
-reference scan.
+runs).  The kernel is `csrc/shift_dp.cu` (a group of lanes per gap, one
+lane per shift, the deletion scan as a max-plus prefix scan over the
+lanes; templated on the band; its header says what bounds it and how the
+design answers); `shift_dp_reference` is the plain PyTorch version, step
+for step the reference scan.
 
 Layout, as `_shift_dp_scan` takes it:
   q   [M, G]      query codes (int8 in the polish layout, int32 in the
@@ -14,8 +15,9 @@ Layout, as `_shift_dp_scan` takes it:
   m   [G] int32   query length per gap
   out S [M+1, 2*band+1, G] float32 — integer scores, so exact in float32
 
-The junction `_combine` and `prepare_junction_batch` of the reference are
-not ported yet; the kernel already takes their band (4) and int32 layout.
+Callers: the polish placement DP (align/polish.py `polish_best_pair`,
+band 8, int8) and the device junction DP (ops/junction.py
+`junction_batch`, band 4, int32, both flanks before `combine`).
 """
 
 from __future__ import annotations

@@ -4,8 +4,11 @@ lr2rmats_tpu_torch, and the outputs must be equal, bytes for the files.
 
 Covered: FASTA / FASTQ, GTF and SAM / BAM read and write; the minimizer
 index arrays and lookups; the host chain and backtrack; the SAM of the
-host aligner backend; every CLI subcommand; `run --cpu`; and synth.py
-against bench.py and scripts/simulate.py.
+host aligner backend, and its per-record and split-phase entry points
+(`align_seqset`, `finish_batch_packed`); the AlnRec-list polish bridges
+(`collect_junction_support`, `polish_records`) and `have_native`; every
+CLI subcommand; `run --cpu`; and synth.py against bench.py and
+scripts/simulate.py.
 """
 
 import gzip
@@ -250,6 +253,91 @@ def test_host_backend_sam_matches_reference():
         out.append(al.align_seqset_packed(seqset, batch_size=128)
                    .emit_sam(al.refs))
     assert out[0] == out[1] and out[0].count(b"\n") >= 400
+
+
+def _rec_key(r):
+    """Every field of an AlnRec, arrays as lists."""
+    return tuple(v.tolist() if isinstance(v, np.ndarray) else v
+                 for v in vars(r).values())
+
+
+@pytest.fixture(scope="module")
+def ont_pair():
+    """A bench.py ONT workload (1.5 Mb, 400 reads, seed 123) with the
+    reference's host aligner and the port's: (ref, port, names, reads,
+    seqset), the seqset in each package's own SeqSet."""
+    rng = np.random.default_rng(123)
+    g = synth.build_genome(1_500_000, rng)
+    reads, _ = synth.simulate_reads(g, 400, rng, profile="ont")
+    names = [f"read{i}" for i in range(len(reads))]
+    seqset = synth.pack_seqset(reads, names)
+    ref_seqset = ref_fasta.SeqSet(names, seqset.codes, seqset.offsets)
+    ref = RefBatchAligner(ref_fasta.Genome(g.names, g.codes, g.offsets),
+                          backend="host")
+    port = BatchAligner(g, index=None)
+    return ref, port, names, reads, (ref_seqset, seqset)
+
+
+@pytest.mark.parametrize("polish", [False, True])
+def test_align_seqset_matches_reference(ont_pair, polish):
+    """The per-record generator gives the reference's records, field for
+    field, with and without the junction polish."""
+    ref, port, _, _, (ref_set, port_set) = ont_pair
+    want = [_rec_key(r) for r in ref.align_seqset(ref_set, batch_size=128,
+                                                  polish=polish)]
+    got = [_rec_key(r) for r in port.align_seqset(port_set, batch_size=128,
+                                                  polish=polish)]
+    assert got == want and len(want) >= 400
+
+
+def test_finish_batch_packed_matches_reference(ont_pair):
+    """dispatch_batch then finish_batch_packed: the RecordBatch of one
+    batch emits the reference's SAM bytes."""
+    ref, port, names, reads, _ = ont_pair
+    out = [al.finish_batch_packed(al.dispatch_batch(names[:160], reads[:160]))
+           .emit_sam(al.refs) for al in (ref, port)]
+    assert out[0] == out[1] and out[0].count(b"\n") >= 160
+    assert port.stats["build_s"] > 0
+
+
+@pytest.fixture(scope="module")
+def unpolished(ont_pair):
+    """The workload's records before the polish, from each package, and
+    the (genome codes, chrom offsets) each aligner's polish takes."""
+    ref, port, _, _, (ref_set, port_set) = ont_pair
+    return (list(ref.align_seqset(ref_set, batch_size=128, polish=False)),
+            list(port.align_seqset(port_set, batch_size=128, polish=False)),
+            (ref.inner.genome.codes, ref.index.chrom_offsets),
+            (port.inner.genome.codes, port.index.chrom_offsets))
+
+
+def test_collect_junction_support_matches_reference(unpolished):
+    from lr2rmats_tpu.align.polish import collect_junction_support as ref_f
+    from lr2rmats_tpu_torch.align.polish import collect_junction_support
+    ref_recs, port_recs, rg, pg = unpolished
+    want = ref_f(ref_recs, *rg)
+    assert collect_junction_support(port_recs, *pg) == want
+    assert len(want) > 20
+
+
+def test_polish_records_matches_reference(unpolished):
+    """polish_records re-places the same junctions and rewrites the same
+    CIGAR, NM and AS on the AlnRec lists in place."""
+    import copy
+    from lr2rmats_tpu.align.polish import polish_records as ref_f
+    from lr2rmats_tpu_torch.align.polish import polish_records
+    ref_recs, port_recs, rg, pg = (copy.deepcopy(x) for x in unpolished)
+    n_ref = ref_f(ref_recs, *rg)
+    assert polish_records(port_recs, *pg) == n_ref
+    assert [_rec_key(r) for r in port_recs] == \
+        [_rec_key(r) for r in ref_recs]
+    assert n_ref > 0
+
+
+def test_have_native_matches_reference():
+    from lr2rmats_tpu.native import have_native as ref_have
+    from lr2rmats_tpu_torch.native import have_native
+    assert have_native() is ref_have() is True
 
 
 def test_host_backend_is_the_only_base_backend():

@@ -187,6 +187,170 @@ def test_chain_kernel_matches_plain(dev, A, B):
     assert bool((ps > 0).any())
 
 
+def _edge_chain_rows(kind):
+    """(qpos, rpos, n, window) of adversarial chain rows, sorted by
+    (rpos, qpos):
+      n_edges: n = 0, 1, W and W+1 (W = 64), and full rows;
+      ties: each anchor of a colinear chain four times over, so every
+        anchor sees runs of equal predecessors and the first must win;
+      none_valid: one reference position, so no predecessor is valid;
+      odd: A = 37 and B = 5, neither a multiple of the reads a block or a
+        warp takes;
+      window_65 / window_256 / window_512: windows past the main path's
+        64, up to the kernel's widest ring (512 slots);
+      window_2000: a window past every row's width (A = 300), which the
+        kernel takes as A."""
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    window = {"window_65": 65, "window_256": 256, "window_512": 512,
+              "window_2000": 2000}.get(kind, 64)
+    if kind in ("n_edges", "ties", "none_valid"):
+        A, B = 128, 41
+    elif kind == "odd":
+        A, B = 37, 5
+    else:
+        A, B = (512, 9) if kind == "window_512" else (300, 17)
+    if kind == "ties":
+        qp = np.zeros((B, A), np.int32)
+        rp = np.zeros((B, A), np.int32)
+        ns = np.full(B, A, np.int32)
+        for b in range(B):
+            step = int(rng.integers(12, 40))
+            a = np.arange(A) // 4
+            qp[b] = 100 + step * a
+            rp[b] = 5000 + step * a + (a // 9) * int(rng.integers(0, 60))
+        return qp, rp, ns, window
+    qp, rp, ns = _anchor_rows(len(kind) * 7 + A, B, A)
+    if kind == "n_edges":
+        ns[:] = np.resize([0, 1, 64, 65, A], B)
+    elif kind == "none_valid":
+        rp[:] = 7000
+        qp[:] = np.sort(rng.integers(0, 3000, (B, A)), 1)
+        ns[:] = A
+    elif kind.startswith("window"):
+        qp, rp, ns = _anchor_rows(window + B, B, A)
+        ns[: B // 2] = A
+        for b in range(B // 2):      # dense colinear rows: every slot valid
+            qp[b] = np.arange(A) * 3
+            rp[b] = 10_000 + np.arange(A) * 3 + rng.integers(0, 2, A).cumsum()
+    return qp, rp, ns, window
+
+
+@pytest.mark.parametrize("kind", ["n_edges", "ties", "none_valid", "odd",
+                                  "window_65", "window_256", "window_512",
+                                  "window_2000"])
+def test_chain_kernel_edge_rows(dev, kind):
+    """csrc/chain.cu == the plain version bit for bit on adversarial rows
+    (f, parent, mask, ps, ss)."""
+    qp, rp, ns, window = _edge_chain_rows(kind)
+    kp = chain_params_for_kernel(ChainParams(window=window))
+    q, g, n = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+               for a in (qp, rp, ns))
+    mask, ps, ss, f, parent = chain_dp_backtrack(q, g, n, kp, 20.0,
+                                                 dp_out=True)
+    rf, rparent = chain_dp_reference(q, g, n, kp)
+    rmask, rps, rss = chain_dp_backtrack_reference(q, g, n, kp, 20.0)
+    torch.cuda.synchronize()
+    assert torch.equal(parent, rparent) and torch.equal(f, rf)
+    assert torch.equal(mask, rmask)
+    assert torch.equal(ps, rps) and torch.equal(ss, rss)
+    if kind == "none_valid":
+        assert bool((parent == -1).all()) and bool((ps == 0).all())
+    elif kind == "ties":
+        # a parent is the first of its four equal copies
+        assert bool((parent[parent >= 0] % 4 == 0).all())
+    else:
+        assert bool((parent >= 0).any())
+
+
+def _long_intron_rows(seed, B, A):
+    """Rows whose exon chains jump 100 kb - 900 kb on the reference, so the
+    valid pairs differ between a 200 kb and a 1 Mb intron cap."""
+    rng = np.random.default_rng(seed)
+    qp = np.zeros((B, A), np.int32)
+    rp = np.zeros((B, A), np.int32)
+    ns = np.full(B, A, np.int32)
+    for b in range(B):
+        q = np.sort(rng.integers(0, 2000, A))
+        r = q + 10_000
+        for ia in rng.integers(0, 2000, 2):
+            r = np.where(q > ia, r + int(rng.integers(100_000, 900_000)), r)
+        r = np.where(rng.random(A) < 0.2, rng.integers(0, 2_000_000, A), r)
+        order = np.lexsort((q, r))
+        qp[b], rp[b] = q[order], r[order]
+    return qp, rp, ns
+
+
+def _chain_exact(q, g, n, kp):
+    """The kernel's (mask, ps, ss, f, parent) == the plain version's."""
+    got = chain_dp_backtrack(q, g, n, kp, 20.0, dp_out=True)
+    want = (*chain_dp_backtrack_reference(q, g, n, kp, 20.0),
+            *chain_dp_reference(q, g, n, kp))
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_chain_kernel_long_introns(dev):
+    """STAR's 1 Mb intron cap: the dd range exceeds the cost table, so the
+    kernel computes each cost inline; equal to the plain version, and it
+    finds chains that the 200 kb default cap refuses."""
+    q, g, n = (torch.from_numpy(a).to(dev) for a in _long_intron_rows(3, 64,
+                                                                         128))
+    star = chain_params_for_kernel(ChainParams(max_intron=1_000_000))
+    assert _chain_exact(q, g, n, star)
+    ps_star = chain_dp_backtrack(q, g, n, star, 20.0)[1]
+    ps_default = chain_dp_backtrack(
+        q, g, n, chain_params_for_kernel(ChainParams()), 20.0)[1]
+    assert bool((ps_star > ps_default).any())
+
+
+def _other_params():
+    return chain_params_for_kernel(ChainParams(
+        gap_scale=0.25, intron_scale=2.0, min_intron_gap=12, max_qgap=300))
+
+
+def test_chain_kernel_refills_the_cost_table(dev):
+    """A change of the chain parameters between launches refills the cost
+    table, and a change back refills it again: each launch equals the
+    plain version of its own parameters."""
+    q, g, n = (torch.from_numpy(a).to(dev) for a in _anchor_rows(7, 256, 128))
+    default = chain_params_for_kernel(ChainParams())
+    other = _other_params()
+    masks = []
+    for kp in (default, other, default, other):
+        assert _chain_exact(q, g, n, kp)
+        masks.append(chain_dp_backtrack(q, g, n, kp, 20.0)[0])
+    assert not torch.equal(masks[0], masks[1])
+
+
+def test_chain_kernel_cost_table_under_threads(dev):
+    """Two host threads, each on its own stream, launch with different
+    parameters in turn; every launch reads the table of its own."""
+    import threading
+    q, g, n = (torch.from_numpy(a).to(dev) for a in _anchor_rows(9, 512, 128))
+    params = (chain_params_for_kernel(ChainParams()), _other_params())
+    want = [chain_dp_backtrack_reference(q, g, n, kp, 20.0) for kp in params]
+    results = [[], []]
+
+    def work(t):
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            for k in range(12):
+                kp = params[(t + k) % 2]
+                results[t].append(((t + k) % 2,
+                                   chain_dp_backtrack(q, g, n, kp, 20.0)))
+            torch.cuda.synchronize()
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not torch.equal(want[0][0], want[1][0])
+    for res in results:
+        assert len(res) == 12
+        for which, got in res:
+            assert all(torch.equal(a, b) for a, b in zip(got, want[which]))
+
+
 @pytest.mark.parametrize("A,B", [(128, 256), (512, 64), (1024, 64),
                                  (4096, 16), (8, 37)])
 def test_chain_dp_kernel_matches_plain(dev, A, B):
@@ -241,6 +405,44 @@ def test_shift_dp_kernel_matches_plain(dev, band, M, G, dtype):
     want = shift_dp_reference(q, win, m, band)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _edge_windows(kind, band, M, G, dtype):
+    """Shift-DP gaps: m0 (empty queries), mM (m = M), mismatch (no query
+    code equals a window code), pad (PAD codes, 7, inside the queries and
+    past every window)."""
+    rng = np.random.default_rng(band * 10 + len(kind))
+    q = rng.integers(0, 4, (M, G)).astype(dtype)
+    win = rng.integers(0, 4, (M + band, G)).astype(dtype)
+    m = rng.integers(0, M + 1, G).astype(np.int32)
+    if kind == "m0":
+        m[:] = 0
+    elif kind == "mM":
+        m[:] = M
+    elif kind == "mismatch":
+        q[:] = 0
+        win[:] = rng.integers(1, 4, win.shape)
+    elif kind == "pad":
+        q[rng.random(q.shape) < 0.2] = 7
+        for g in range(G):
+            q[m[g]:, g] = 7
+            win[m[g] + band:, g] = 7
+    return q, win, m
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int32])
+@pytest.mark.parametrize("band,M,G", [(4, 64, 37), (8, 192, 33)])
+@pytest.mark.parametrize("kind", ["m0", "mM", "mismatch", "pad"])
+def test_shift_dp_kernel_edge_gaps(dev, kind, band, M, G, dtype):
+    """csrc/shift_dp.cu == the plain version bit for bit, NEG cells
+    included, at G not a multiple of the gaps a block takes."""
+    q, win, m = (torch.from_numpy(a).to(dev)
+                 for a in _edge_windows(kind, band, M, G, dtype))
+    got = shift_dp(q, win, m, band)
+    want = shift_dp_reference(q, win, m, band)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool((want == -1e18).any()) and bool((want > -1e17).any())
 
 
 def test_polish_best_pair_card_matches_cpu(dev):

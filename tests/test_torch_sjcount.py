@@ -12,13 +12,13 @@ import pytest
 
 from lr2rmats_tpu.junctions.sjcount import JunctionCounter
 from lr2rmats_tpu.junctions.sjcount_device import DeviceCounts, make_verifier
-from lr2rmats_tpu.native import get_lib
 from lr2rmats_tpu_torch.junctions.sjcount import (TorchJunctionCounter,
                                                   count_junction_support)
 from lr2rmats_tpu_torch.junctions.sjcount_device import (TorchCounts,
                                                          TorchHammingVerifier)
 from tests.test_sjcount_device import _synthetic_workload, mk_reads
 from tests.test_torch_chain import one_torch_thread  # noqa: F401 (autouse)
+from tests.test_torch_host import reference_native_library
 
 
 def _candidates(seed, n_buf=5000, n_seg=17, C=600):
@@ -38,15 +38,15 @@ def _candidates(seed, n_buf=5000, n_seg=17, C=600):
 
 
 @pytest.mark.parametrize("seed", [2, 3])
-def test_verifier_equals_reference_and_native(seed):
+def test_verifier_equals_reference_and_native(seed, monkeypatch):
+    import lr2rmats_tpu.native.lib as ref_lib
     buf, comb, comb_off, rid, pos, past = _candidates(seed)
     got = TorchHammingVerifier(buf, "cpu").verify(comb, comb_off, rid, pos)
     assert got.dtype == np.int32
     np.testing.assert_array_equal(
         got, make_verifier(buf).verify(comb, comb_off, rid, pos))
-    lib = get_lib()
-    if lib is None:
-        pytest.skip("native library not built")
+    reference_native_library(monkeypatch)
+    lib = ref_lib.get_lib()
     mm = np.empty(len(rid), np.int32)
     lib.hamming_pairs_c(buf, len(buf), comb, comb_off, rid, pos, len(rid),
                         mm)
