@@ -16,12 +16,14 @@ exits non-zero):
      main-path shapes, exact, with CUDA-event times of both: chain at
      A=128/B=1664 and A=64/B=320 on anchor rows of the workload's first
      batch plus random rows; shift DP at band 8, M=192, G=256/512 and band
-     4, M=64, G=128, and both junction flanks at the G of the first batch;
-     combine on the junction gaps of the first batch plus random gaps (G >=
-     2048), all six outputs; hamming at 131072 candidates of 150 bases,
-     windows past the buffer end included; and the two torch-op ports (seed
-     lookup, junction counts) against their host versions, host-clock
-     times;
+     4, M=64, G=128, and at the junction flank shape (both flanks of the
+     first batch's gaps); the junction kernel (both flank DPs and the
+     combine in one launch) on the junction gaps of the first batch plus
+     random gaps (G >= 2048), all six outputs; hamming at 131072
+     candidates of 150 bases, windows past the buffer end included, then
+     reads of 0-301 bases at every offset mod 8 of both buffers; and the
+     two torch-op ports (seed lookup, junction counts) against their host
+     versions, host-clock times beside their bounds;
   4. slice 1: TorchBatchAligner(device="cuda").align_seqset_packed on the
      bench.py workload (lr2rmats_tpu_torch/synth.py, the same bytes: 20 Mb
      genome, ONT profile, seed 123, batch 1536) then emit_sam; the same
@@ -107,11 +109,12 @@ GENOME_MB = 20.0
 CHAIN_SHAPES = ((128, 1664), (64, 320))          # (A, chunk rows)
 SHIFT_SHAPES = ((8, 192, 256, "int8"), (8, 192, 512, "int8"),
                 (4, 64, 128, "int32"))           # (band, M, G, dtype)
-COMBINE_MIN_G = 2048
+JUNCTION_MIN_G = 2048
 HAMMING_C, HAMMING_L = 131072, 150
+HAMMING_EDGE_LENS = (0, 1, 7, 149, 150, 301)
 SWITCHES = ("LR2RMATS_DEVICE_JUNCTIONS", "LR2RMATS_DEVICE_SEED",
             "LR2RMATS_DEVICE_SJCOUNT")
-PATH_KERNELS = ("chain_dp_backtrack", "chain_dp", "shift_dp", "combine",
+PATH_KERNELS = ("chain_dp_backtrack", "chain_dp", "shift_dp", "junction",
                 "hamming", "log_probe")
 MESH_READS, MESH_Q, MESH_H, MESH_H_WIDE = 1536, 128, 4, 8
 CHAIN_DP_RANDOM = ((1024, 256), (4096, 32))      # (A, B)
@@ -126,7 +129,13 @@ F32_OPS_S = 67e12
 # operations per unit of work, counted from each kernel's inner loop
 CHAIN_STEP_OPS = 20      # one predecessor step of the chain DP (chain.cu)
 SHIFT_CELL_OPS = 9       # one band cell of the shift DP (shift_dp.cu)
-COMBINE_CELL_OPS = 15    # one (j, cl, cr) candidate of combine.cu
+# one (j, cl, cr) candidate of the combine with its terms hoisted to
+# (j, cl) and (j, cr): two adds, the bonus read, the gate select and the
+# argmax compare (junction.cu combine_rows)
+JUNCTION_CELL_OPS = 5
+# one (j, cl) or (j, cr) entry of the hoisted tables: the hinge's
+# subtract and max, and its subtraction from S (junction.cu flank_dp)
+JUNCTION_HINGE_OPS = 3
 HAMMING_BASE_OPS = 2     # compare and count per base (hamming.cu)
 LOG_PROBE_OPS = 2        # log and scale per element (log_probe.cu)
 
@@ -342,15 +351,42 @@ def random_gaps(rng, codes, n):
     return gaps
 
 
+def junction_work(t, G):
+    """(bytes, operations) the junction placement of a batch needs: per gap
+    the rows a finite cell reaches of q and qr (R = min(m, M)) and of
+    lwin and rwin (R + B), the donor and acceptor classes at offsets <=
+    m + 2B, m / span / el / er and the six outputs; nothing for SL / SR,
+    which stay on chip.  Operations: both flank DPs over rows 0..m, the
+    hinge of each of their (m+1) W cells, and the combine's (m+1) W W
+    cells, each counted in the hoisted form."""
+    from lr2rmats_tpu_torch.ops.junction import B_DEF
+    W = 2 * B_DEF + 1
+    M = t["q"].shape[0]
+    m = t["m"].long()
+    R = m.clamp(min=-1, max=M)
+    rows = int((R + 1).sum())
+    code_rows = int(2 * R.clamp(min=0).sum() + 2 * (R + B_DEF).clamp(
+        min=0).sum())
+    class_rows = int(2 * (m + 2 * B_DEF + 1).clamp(
+        min=0, max=t["dok"].shape[0]).sum())
+    per_gap = sum(t[k].element_size() for k in ("m", "span", "el", "er"))
+    out = 4 * 5 + 1
+    return (code_rows * 4 + class_rows + G * (per_gap + out),
+            (SHIFT_CELL_OPS + JUNCTION_HINGE_OPS) * 2 * rows * W
+            + JUNCTION_CELL_OPS * rows * W * W)
+
+
 def check_junction(aligner, first_batch, dev):
-    """Both junction flank shift DPs and the combine kernel == their plain
-    versions on the junction gaps of the workload's first batch (the native
-    collect pass of the device junction backend) plus random gaps."""
+    """The junction kernel (both flank DPs and the combine, one launch)
+    == its plain version on all six outputs, and the shift-DP kernel at
+    the flank shape == its plain version, on the junction gaps of the
+    workload's first batch (the native collect pass of the device
+    junction backend) plus random gaps."""
     import torch
     from lr2rmats_tpu_torch.diag.measure import cuda_ms, queued_ms
     from lr2rmats_tpu_torch.native import get_lib
-    from lr2rmats_tpu_torch.ops.junction import (B_DEF, combine,
-                                                 combine_reference,
+    from lr2rmats_tpu_torch.ops.junction import (B_DEF, junction_place,
+                                                 junction_place_reference,
                                                  prepare_junction_batch)
     from lr2rmats_tpu_torch.ops.splice import shift_dp, shift_dp_reference
     codes = aligner.inner.genome.codes
@@ -363,22 +399,25 @@ def check_junction(aligner, first_batch, dev):
                                                 len(packed[1]))
     n_real = len(gaps)
     rng = np.random.default_rng(SEED + 2)
-    gaps += random_gaps(rng, codes, max(COMBINE_MIN_G - n_real, 256))
+    gaps += random_gaps(rng, codes, max(JUNCTION_MIN_G - n_real, 256))
     b = prepare_junction_batch(codes, gaps, B_DEF)
-    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-         for k, v in b.items() if k != "B"}
+    names = ("q", "qr", "lwin", "rwin", "m", "span", "dok", "aok", "el", "er")
+    t = {k: torch.from_numpy(np.ascontiguousarray(b[k])).to(dev)
+         for k in names}
     G = len(gaps)
+    args = (*(t[k] for k in names), B_DEF, aligner.p.min_intron_len)
+    got = junction_place(*args)
+    want = junction_place_reference(*args)
+    # the flank shape of the shift-DP kernel: no longer on a path, still a
+    # shape of that kernel
     flanks = (("q", "lwin"), ("qr", "rwin"))
     S = [shift_dp(t[q], t[w], t["m"], B_DEF) for q, w in flanks]
     S_ref = [shift_dp_reference(t[q], t[w], t["m"], B_DEF)
              for q, w in flanks]
-    args = (*S, t["m"], t["span"], t["dok"], t["aok"], t["el"], t["er"],
-            B_DEF, aligner.p.min_intron_len)
-    got = combine(*args)
-    want = combine_reference(*args)
     torch.cuda.synchronize()
     shift_same = all(torch.equal(a, r) for a, r in zip(S, S_ref))
-    same = [torch.equal(a, r) for a, r in zip(got, want)]
+    same = [a.dtype == r.dtype and torch.equal(a, r)
+            for a, r in zip(got, want)]
     fin = want[5]
     err = float((got[0] - want[0])[fin].abs().max()) if bool(fin.any()) \
         else 0.0
@@ -388,40 +427,35 @@ def check_junction(aligner, first_batch, dev):
     shift_plain = cuda_ms(lambda: [shift_dp_reference(t[q], t[w], t["m"],
                                                       B_DEF)
                                    for q, w in flanks], 1) / 2
-    ms = cuda_ms(lambda: combine(*args), 20)
-    queued = queued_ms(lambda: combine(*args), 20)
-    plain_ms = cuda_ms(lambda: combine_reference(*args), 2)
-    say("kernels", f"shift_dp band=4 M=64 G={G} int32 (both junction "
-        f"flanks): exact={shift_same} kernel {shift_ms:.4f} ms (queued "
+    ms = cuda_ms(lambda: junction_place(*args), 20)
+    queued = queued_ms(lambda: junction_place(*args), 20)
+    plain_ms = cuda_ms(lambda: junction_place_reference(*args), 1)
+    say("kernels", f"shift_dp band=4 M=64 G={G} int32 (the junction flank "
+        f"shape): exact={shift_same} kernel {shift_ms:.4f} ms (queued "
         f"{shift_queued:.4f}), plain {shift_plain:.2f} ms per flank")
-    say("kernels", f"combine G={G}: {n_real} gaps of the first batch + "
+    say("kernels", f"junction G={G}: {n_real} gaps of the first batch + "
         f"{G - n_real} random, found {int(fin.sum())}; exact(score, j, cl, "
         f"cr, vote, found)={same} max_abs_err={err} kernel {ms:.4f} ms "
         f"(queued {queued:.4f}), plain {plain_ms:.2f} ms")
     if not shift_same:
-        raise AssertionError("junction shift_dp disagrees with the plain "
-                             "version")
+        raise AssertionError("shift_dp disagrees with the plain version at "
+                             "the junction flank shape")
     if not all(same):
         bad = torch.zeros(G, dtype=torch.bool, device=dev)
         for a, r in zip(got, want):
             bad |= a != r
         g = int(torch.nonzero(bad)[0])
         raise AssertionError(
-            f"combine kernel disagrees with the plain version at gap {g}: "
+            f"junction kernel disagrees with the plain version at gap {g}: "
             f"{[x[g].item() for x in got]} vs {[x[g].item() for x in want]}")
-    # per gap the m+1 rows of SL and of SR a placement can use, the m+2B+1
-    # donor and acceptor classes, m / span / el / er and the outputs
-    W = 2 * B_DEF + 1
-    rows = int((t["m"].long() + 1).sum())
-    work = (2 * rows * W * 4 + 2 * (rows + 2 * B_DEF * G)
-            + nbytes(t["m"], t["span"], t["el"], t["er"], *got),
-            COMBINE_CELL_OPS * rows * W * W)
     # one flank's shift DP, as check_shift_dp counts it
+    W = 2 * B_DEF + 1
+    cells = int((t["m"].long() + 1).sum()) * W
     flank = (shift_ms, shift_queued, shift_plain,
              shift_dp_bytes(t["q"], t["lwin"], t["m"], B_DEF, S[0]),
-             SHIFT_CELL_OPS * rows * W)
-    return err, (ms, queued, plain_ms, *work), (f"band={B_DEF} M={S[0].shape[0] - 1} "
-                                        f"G={G} int32", flank)
+             SHIFT_CELL_OPS * cells)
+    return err, (ms, queued, plain_ms, *junction_work(t, G)), (
+        f"band={B_DEF} M={S[0].shape[0] - 1} G={G} int32", flank)
 
 
 def check_hamming(codes, dev):
@@ -462,6 +496,14 @@ def check_hamming(codes, dev):
     if not same:
         raise AssertionError("hamming kernel disagrees with the plain "
                              "version")
+    edge_same = check_hamming_edges(codes, dev)
+    say("kernels", f"hamming, reads of {HAMMING_EDGE_LENS} bases at every "
+        f"offset mod 8 in the read buffer and in the genome, windows over "
+        f"both genome ends, buffers off 4-byte boundaries: exact="
+        f"{edge_same}")
+    if not edge_same:
+        raise AssertionError("hamming kernel disagrees with the plain "
+                             "version on the alignment cases")
     # the distinct sectors of the genome windows and of the reads the
     # candidates name, their offsets, rid, pos and the counts
     end = off[rid + 1]
@@ -471,6 +513,46 @@ def check_hamming(codes, dev):
             + 8 * len(np.union1d(rid, rid + 1)) + nbytes(*args[3:], got),
             HAMMING_BASE_OPS * HAMMING_C * HAMMING_L)
     return err, (ms, queued, plain_ms, *work)
+
+
+def check_hamming_edges(codes, dev) -> bool:
+    """hamming == plain version where the word path has edges: reads of
+    every length of HAMMING_EDGE_LENS starting at every offset mod 8 of
+    the read buffer (filler segments of 1-8 bytes between them), each
+    against windows at every offset mod 8 of the genome and over both of
+    its ends, with both buffers aligned and as views that start one byte
+    off a 4-byte boundary (the wrapper copies those)."""
+    import torch
+    from lr2rmats_tpu_torch.junctions.sjcount_device import (
+        hamming, hamming_reference)
+    rng = np.random.default_rng(SEED + 6)
+    n = len(codes)
+    lens = np.repeat(np.array(HAMMING_EDGE_LENS, np.int64), 8)
+    fill = np.arange(len(lens)) % 8 + 1
+    delim = np.zeros(2 * len(lens) + 1, np.int64)
+    np.cumsum(np.stack([lens, fill], 1).reshape(-1), out=delim[1:])
+    comb = codes[int(rng.integers(0, n - delim[-1]))
+                 + np.arange(delim[-1])].copy()
+    per = 14                # 8 offsets mod 8, 3 over the start, 3 the end
+    k = np.tile(np.arange(per), len(lens))
+    L = np.repeat(lens, per)
+    rid = np.repeat(2 * np.arange(len(lens)), per).astype(np.int32)
+    pos = rng.integers(1, (n - 400) // 8, len(rid)) * 8 + k
+    pos = np.where(k >= 8, np.array([0] * 8 + [-5, 0, 3] + [0] * 3)[k], pos)
+    pos = np.where(k >= 11, n - L + np.array([0] * 11 + [-3, 2, 8])[k], pos)
+    ok = True
+    for shift in (0, 1):
+        bb, cb = (torch.from_numpy(np.r_[np.zeros(shift, np.uint8),
+                                         a]).to(dev)[shift:]
+                  for a in (codes, comb))
+        args = [bb, cb, torch.from_numpy(delim).to(dev),
+                torch.from_numpy(rid).to(dev),
+                torch.from_numpy(pos.astype(np.int64)).to(dev)]
+        got = hamming(*args)
+        want = hamming_reference(*args)
+        torch.cuda.synchronize()
+        ok = ok and torch.equal(got, want)
+    return ok
 
 
 def wall_ms(fn, reps):
@@ -520,11 +602,23 @@ def check_torch_ops(aligner, first_batch, dev):
     counts_t = (wall_ms(lambda: (counts.add(cc, u, over), counts.fetch()),
                         5),
                 wall_ms(host_counts, 2))
+    # bounds: the lookup reads each query (int32) and writes its two
+    # int32 bounds, and must read the table entries that bracket each
+    # answer (lo - 1, lo, hi - 1, hi); the counts read each update (int64
+    # id, bool, int32 overhang), read and write the three int32 slots of
+    # each distinct id, and fetch copies the three tables out
+    lo, hi = idx.lookup(h)
+    ent = np.concatenate([lo - 1, lo, hi - 1, hi])
+    ent = ent[(ent >= 0) & (ent < len(idx.hashes))]
+    seed_bound = bound(12 * len(h) + sector_bytes(4 * ent, 4 * ent + 4), 0)
+    n_ids = len(np.unique(np.minimum(cc, n)))
+    counts_bound = bound(13 * M + 2 * 3 * 4 * n_ids + 3 * 4 * n, 0)
     say("kernels", f"torch ops: seed lookup of {len(h)} hashes exact="
-        f"{seed_same} card {seed_t[0]:.2f} ms, host {seed_t[1]:.2f} ms; "
-        f"junction counts of {M} updates exact={counts_same} card "
-        f"{counts_t[0]:.2f} ms, host numpy {counts_t[1]:.2f} ms (host "
-        "clock, copies included)")
+        f"{seed_same} card {seed_t[0]:.2f} ms, host {seed_t[1]:.2f} ms, "
+        f"bound {seed_bound[0]:.4f} ms by {seed_bound[1]}; junction counts "
+        f"of {M} updates exact={counts_same} card {counts_t[0]:.2f} ms, "
+        f"host numpy {counts_t[1]:.2f} ms, bound {counts_bound[0]:.4f} ms "
+        f"by {counts_bound[1]} (host clock, copies included)")
     if not (seed_same and counts_same):
         raise AssertionError("a torch-op port disagrees with the host "
                              "version")
@@ -716,6 +810,7 @@ def check_mesh_step(aligner, reads, dev, card, hits):
     from lr2rmats_tpu_torch.parallel.distributed import backend
     from lr2rmats_tpu_torch.parallel.mesh import (make_mesh,
                                                   sharded_align_step)
+    from lr2rmats_tpu_torch.ops.chain import chain_params_for_kernel
     idx = aligner.index
     if int(idx.hashes.max()) >= 0xFFFFFFFF or int(idx.pos.max()) >= 2**30:
         raise AssertionError("bench index does not fit the mesh step")
@@ -760,6 +855,13 @@ def check_mesh_step(aligner, reads, dev, card, hits):
     finally:
         dist.destroy_process_group()
     n_anchor = rows[0][2]
+    # the step's bound: the index and read arrays it is given, read once,
+    # the scores written once; the chain DP's steps over the valid anchors
+    step_bound = bound(
+        idx_hash.nbytes + idx_pos.nbytes + rh.nbytes + rq.nbytes
+        + 4 * len(rh),
+        CHAIN_STEP_OPS * chain_steps(
+            n_anchor, chain_params_for_kernel(aligner.p.chain).window))
     line = {"reads": len(reads), "Q": MESH_Q, "hits_per_seed": hits,
             "anchors_per_read": MESH_Q * hits,
             "valid_anchors_max": int(n_anchor.max()),
@@ -769,6 +871,7 @@ def check_mesh_step(aligner, reads, dev, card, hits):
             "score_max": float(want.max()),
             "chain_kernel_ms": kernel_ms.get("chain_dp", 0.0),
             "step_ms": step_ms, "plain_step_ms": plain_ms,
+            "step_bound_ms": step_bound[0], "step_bound_by": step_bound[1],
             "step_wall_s": wall, "launches": launches, "card": card}
     say("multi" if hits == MESH_H else "split", "mesh step " +
         json.dumps(line))
@@ -872,7 +975,7 @@ def run_two_process_pipeline(here, card):
         f"process, {ref_s:.2f} s; not alternated), {len(got)} files "
         f"byte-identical, {gather_b} payload bytes gathered in "
         f"{gather_s:.4f} s")
-    for name in ("chain_dp_backtrack", "shift_dp", "combine", "hamming"):
+    for name in ("chain_dp_backtrack", "shift_dp", "junction", "hamming"):
         if not all(la[name] for la in launches):
             raise AssertionError(f"a pipeline process did not launch {name}")
     return launches
@@ -1028,7 +1131,8 @@ def check_chain_dp(aligner, first_batch, mesh_rows, dev):
 def check_log_probe(dev):
     """8: the log probe kernel == its plain version, bit for bit, over the
     diagnostic's sample; returns (max_abs_err, (ms, queued_ms, plain_ms,
-    bytes, ops, the time of the PyTorch call torch.log(x) * LOG2E))."""
+    bytes, ops, and the times of the PyTorch call torch.log(x) * LOG2E
+    back to back and queued))."""
     import torch
     from lr2rmats_tpu_torch.diag.measure import cuda_ms, queued_ms
     from lr2rmats_tpu_torch.diag.chain_parity import (LOG2E, log_probe,
@@ -1052,10 +1156,14 @@ def check_log_probe(dev):
         f"(20 back-to-back calls each; between the events around each "
         f"launch {ev['log_probe'] / 20:.4f} ms)")
     lib_ms = cuda_ms(lambda: torch.log(x) * LOG2E, 20)
+    lib_queued = queued_ms(lambda: torch.log(x) * LOG2E, 20)
+    say("diag", f"log_probe: torch.log(x) * LOG2E {lib_ms:.4f} ms (queued "
+        f"{lib_queued:.4f}) against the kernel's {ms:.4f} (queued "
+        f"{queued:.4f})")
     if not same:
         raise AssertionError("log_probe disagrees with its plain version")
     return err, (ms, queued, plain_ms, nbytes(x, y),
-                 LOG_PROBE_OPS * x.numel(), lib_ms)
+                 LOG_PROBE_OPS * x.numel(), lib_ms, lib_queued)
 
 
 def run_diag(dev):
@@ -1148,7 +1256,7 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     chain_err, chain_t = check_chain(aligner, reads[:1536], dev)
     shift_err, shift_t = check_shift_dp(genome.codes, dev)
-    comb_err, comb_t, (flank_shape, flank_t) = check_junction(
+    junc_err, junc_t, (flank_shape, flank_t) = check_junction(
         aligner, reads[:1536], dev)
     ham_err, ham_t = check_hamming(genome.codes, dev)
     check_torch_ops(aligner, reads[:1536], dev)
@@ -1219,7 +1327,7 @@ def main(argv=None) -> int:
     al2.align_batch(names[:64], reads[:64])
     _, sam2, wall2, launches2, kernel_ms2, st2, peak2 = align_slice(
         "slice 2", al2, seqset, sam_ref, dev)
-    for name in ("chain_dp_backtrack", "shift_dp", "combine"):
+    for name in ("chain_dp_backtrack", "shift_dp", "junction"):
         if launches2[name] == 0:
             raise AssertionError(f"kernel {name} was not launched by slice 2")
     if st2["seed_lookup_calls"] == 0 or st2["junction_gaps"] == 0:
@@ -1316,7 +1424,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"kernel {name} was not launched by a "
                                  "path run of phases 4-8")
 
-    def entry(name, source, replaces, err, t, lib_ms=None):
+    def entry(name, source, replaces, err, t, lib_ms=None, lib_queued=None):
         """One kernel of the JSON line; t = (ms, queued_ms, plain_ms, bytes,
         ops)."""
         bound_ms, bound_by = bound(t[3], t[4])
@@ -1325,7 +1433,8 @@ def main(argv=None) -> int:
                 "replaces": replaces, "launches": total[name],
                 "max_abs_err": err, "ms": t[0], "queued_ms": t[1],
                 "plain_ms": t[2], "bound_ms": bound_ms, "bound_by": bound_by,
-                "bytes": t[3], "operations": t[4], "library_ms": lib_ms}
+                "bytes": t[3], "operations": t[4], "library_ms": lib_ms,
+                "library_queued_ms": lib_queued}
 
     kernels = [
         entry("chain_dp_backtrack", "chain.cu",
@@ -1337,12 +1446,14 @@ def main(argv=None) -> int:
         entry("shift_dp", "shift_dp.cu",
               "lr2rmats_tpu/ops/splice_device.py:295", shift_err,
               shift_t[SHIFT_SHAPES[1][:3]]),
-        entry("combine", "combine.cu",
-              "lr2rmats_tpu/ops/splice_device.py:152", comb_err, comb_t),
+        entry("junction", "junction.cu",
+              "lr2rmats_tpu/ops/splice_device.py:260 (_junction_scan: :295 "
+              "_dp_kernel x2 + :152 _combine)", junc_err, junc_t),
         entry("hamming", "hamming.cu",
               "lr2rmats_tpu/junctions/sjcount_device.py:69", ham_err, ham_t),
         entry("log_probe", "log_probe.cu", "scripts/diag_chain_pallas.py:98",
-              probe_err, probe_t[:5], lib_ms=probe_t[5]),
+              probe_err, probe_t[:5], lib_ms=probe_t[5],
+              lib_queued=probe_t[6]),
     ]
     # the junction flanks' shift DP: a second shape of the shift_dp entry
     flank_bound, flank_by = bound(flank_t[3], flank_t[4])

@@ -22,7 +22,7 @@ PyTorch versions (device="cpu"):
     (align/polish.py);
   * with the device junction backend (`junction_backend="device"`, or
     LR2RMATS_DEVICE_JUNCTIONS=1|scan|pallas) the extension's junction gaps
-    are placed by the shift-DP and combine kernels (ops/junction.py),
+    are placed by the junction kernel (ops/junction.py junction_place),
     between the native collect and assemble passes;
   * with LR2RMATS_DEVICE_SEED=1 the index lookup runs against a
     device-resident table (index/seed_device.py).
@@ -73,8 +73,9 @@ from ..ops import _build
 from ..ops.chain import (DP_MIN_ROWS, FUSED_MIN_ROWS, chain_dp,
                          chain_dp_backtrack, chain_params_for_kernel,
                          gather_rows, launch_rows)
-from ..ops.junction import (B_DEF as JUNCTION_BAND, MGAP, cell_ops, combine,
-                            junction_batch, prepare_junction_batch)
+from ..ops.junction import (B_DEF as JUNCTION_BAND, MGAP, cell_ops,
+                            junction_batch, junction_place,
+                            prepare_junction_batch)
 from ..ops.splice import shift_dp
 from ..utils import default_threads, log
 from .aligner import AlignParams, SpliceAligner
@@ -1118,7 +1119,7 @@ class TorchBatchAligner(BatchAligner):
     def fresh_stats() -> Dict[str, float]:
         return {"device_wall_s": 0.0, "anchors": 0, "device_calls": 0,
                 "chain_kernel_launches": 0, "shift_dp_kernel_launches": 0,
-                "combine_kernel_launches": 0, "seed_lookup_calls": 0,
+                "junction_kernel_launches": 0, "seed_lookup_calls": 0,
                 "junction_calls": 0, "junction_gaps": 0, "junction_found": 0}
 
     @classmethod
@@ -1304,7 +1305,8 @@ class TorchBatchAligner(BatchAligner):
     def _extend_device_junctions(self, lib, packed, n_cand, max_len):
         """Two-pass extension with the junction DP on the device (reference
         BatchAligner._extend_device_junctions): collect (C) -> placements
-        (shift-DP + combine kernels) -> cell op recovery (C) -> assemble
+        (the junction kernel: both flank DPs and the combine) -> cell op
+        recovery (C) -> assemble
         (C).  Runs on the build worker."""
         p = self.p
         (_, _, reads_concat, read_offs, cand_read, cand_strand, _, _, _,
@@ -1331,10 +1333,8 @@ class TorchBatchAligner(BatchAligner):
             st["junction_calls"] += 1
             st["junction_gaps"] += n_dev
             st["junction_found"] += int(found.sum())
-            st["combine_kernel_launches"] += (_build.LAUNCHES["combine"] -
-                                              n0["combine"])
-            st["shift_dp_kernel_launches"] += (_build.LAUNCHES["shift_dp"] -
-                                               n0["shift_dp"])
+            st["junction_kernel_launches"] += (_build.LAUNCHES["junction"] -
+                                               n0["junction"])
             dev_found[:n_dev] = found
             dev_vote[:n_dev] = vote
             dev_ilen[:n_dev] = (batch["span"] - batch["m"] + 2 * B -
@@ -1375,8 +1375,8 @@ class TorchBatchAligner(BatchAligner):
     def warmup_chain_shapes(self) -> None:
         """Build the kernels and launch each production shape once on every
         device (every chain bucket chunk, or one DP-only chunk for
-        backend="pallas"; the polish shift DP, and the junction shift DP
-        and combine), so neither the nvcc build nor a first launch lands
+        backend="pallas"; the polish shift DP, and the junction kernel),
+        so neither the nvcc build nor a first launch lands
         inside a timed region.  No-op on the CPU."""
         if self.device.type != "cuda":
             return
@@ -1407,11 +1407,11 @@ class TorchBatchAligner(BatchAligner):
         q = torch.zeros((MGAP, G), dtype=torch.int32, device=dev)
         win = torch.zeros((MGAP + B, G), dtype=torch.int32, device=dev)
         m = torch.full((G,), MGAP, dtype=torch.int32, device=dev)
-        S = shift_dp(q, win, m, B)
         cls = torch.zeros((MGAP + 2 * B + 1, G), dtype=torch.int8,
                           device=dev)
         span = torch.full((G,), 1000, dtype=torch.int64, device=dev)
-        combine(S, S, m, span, cls, cls, m, m, B, self.p.min_intron_len)
+        junction_place(q, q, win, win, m, span, cls, cls, m, m, B,
+                       self.p.min_intron_len)
         for d in {dev, *self.devices}:
             torch.cuda.synchronize(d)
 

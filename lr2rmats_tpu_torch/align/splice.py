@@ -42,7 +42,7 @@ BONUS_SEMI = 8.0     # GC..AG / AT..AC and complements: a gap of 2 below
 #     W_POS * (max(el_exp - don_off, 0) + max(er_exp - acc_off, 0)).
 # Placements beyond the anchors (error slack before the junction) stay
 # free, so truth is never penalized.  Dyadic (3/8) so the f32 device
-# combine (ops/junction.py, csrc/combine.cu) agrees bit-for-bit with this
+# combine (ops/junction.py, csrc/junction.cu) agrees bit-for-bit with this
 # f64 math.
 W_POS = 0.375
 

@@ -74,9 +74,13 @@ def hamming(buf, comb, comb_off, rid, pos) -> torch.Tensor:
         return hamming_reference(buf, comb, comb_off, rid, pos)
     if dev.type != "cuda":
         raise ValueError(f"hamming: unsupported device {dev}")
+    if C == 0:
+        return torch.empty(0, dtype=torch.int32, device=dev)
     lib = _build.load()
-    comb, comb_off, rid, pos = (t.contiguous()
-                                for t in (comb, comb_off, rid, pos))
+    # the kernel reads both byte buffers as aligned 4-byte words
+    buf, comb = (t.contiguous() if t.data_ptr() % 4 == 0 else t.clone()
+                 for t in (buf, comb))
+    comb_off, rid, pos = (t.contiguous() for t in (comb_off, rid, pos))
     mm = torch.empty(C, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         start = _build.start_event(dev)

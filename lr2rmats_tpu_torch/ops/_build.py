@@ -33,13 +33,13 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
 SOURCES = [os.path.join(_PKG, "csrc", name)
            for name in ("chain.cu", "chain_dp.cu", "shift_dp.cu",
-                        "combine.cu", "hamming.cu", "log_probe.cu")]
+                        "junction.cu", "hamming.cu", "log_probe.cu")]
 BUILD_DIR = os.path.join(_REPO, "build", "lr2rmats_tpu_torch")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas=-v"]
 
-KERNELS = ("chain_dp_backtrack", "chain_dp", "shift_dp", "combine",
+KERNELS = ("chain_dp_backtrack", "chain_dp", "shift_dp", "junction",
            "hamming", "log_probe")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 # launches of every kernel per card index
@@ -128,8 +128,9 @@ SIGNATURES: Dict[str, List[object]] = {
         #                                     intron_scale
         _P, _P, _P],                        # f_out, parent_out, stream
     "lr2_shift_dp": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "lr2_combine": [
-        _P, _P, _P, _P, _P, _P, _P, _P,     # SL, SR, m, span, dok, aok, el, er
+    "lr2_junction": [
+        _P, _P, _P, _P, _P, _P, _P, _P,     # q, qr, lwin, rwin, m, span, dok,
+        _P, _P,                             # aok, el, er
         _I, _I, _I, _LL,                    # M, G, B, min_intron
         _P, _P, _P, _P, _P, _P,             # score, j, cl, cr, vote, found
         _P],                                # stream

@@ -2,15 +2,17 @@
 
 Counterpart of the junction half of lr2rmats_tpu/ops/splice_device.py.  For
 every inter-anchor gap that looks like an intron, both query flanks run the
-banded shift DP (ops/splice.shift_dp, csrc/shift_dp.cu, band 4, M = MGAP),
-and `combine` scores every (query split j, left shift cl, right shift cr)
-joint placement with the GT..AG / CT..AC motif bonus and the anchor-position
-prior, keeping the best per gap.  `combine` launches csrc/combine.cu for
-CUDA tensors; `combine_reference` is its plain PyTorch version, step for
-step the reference's `_combine` (the one entry here replaces both the
-reference's lax.scan and Pallas backends).  All scores are integers or
-multiples of 3/8, so float32 is exact and the kernel equals the plain
-version bit for bit.
+banded shift DP (band 4, M = MGAP), and the combine scores every (query
+split j, left shift cl, right shift cr) joint placement with the GT..AG /
+CT..AC motif bonus and the anchor-position prior, keeping the best per
+gap.  `junction_place` does all three in one launch of csrc/junction.cu
+for CUDA tensors (the counterpart of the reference's `_junction_scan`,
+which replaces both its lax.scan and Pallas backends);
+`junction_place_reference` is its plain PyTorch version, step for step
+`_junction_scan`: `shift_dp_reference` for each flank, then
+`combine_reference` (the reference's `_combine`).  All scores are integers
+or multiples of 3/8, so float32 is exact and the kernel equals the plain
+version bit for bit.  `combine` alone runs on the CPU only.
 
 The host halves are numpy copies of the reference's (its module imports
 jax): `prepare_junction_batch` packs the gaps into lanes, `recover_ops`
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .splice import NEG, PAD_CODE, shift_dp
+from .splice import NEG, PAD_CODE, shift_dp_reference
 
 MGAP = 64          # max gap-query length placed by the batch (host beyond)
 B_DEF = 4
@@ -173,8 +175,8 @@ def _combine_chunk(SL, SR, m, span, dok, aok, el, er, B: int,
 
 def combine_reference(SL, SR, m, span, dok, aok, el, er, B: int,
                       min_intron: int):
-    """Plain PyTorch version of the combine kernel (splice_device._combine):
-    (score f32, j, cl, cr, vote int32, found bool), each [G].  Runs in
+    """The combine in plain PyTorch, step for step splice_device._combine
+    (the second half of the junction kernel's plain version): (score f32, j, cl, cr, vote int32, found bool), each [G].  Runs in
     chunks of gaps to bound its [M+1, W, W, G] intermediates."""
     G = SL.shape[2]
     parts = [_combine_chunk(SL[:, :, s:s + _REF_CHUNK],
@@ -189,13 +191,34 @@ def combine_reference(SL, SR, m, span, dok, aok, el, er, B: int,
     return tuple(torch.cat(cols) for cols in zip(*parts))
 
 
+def _check(name: str, got: dict, want: dict) -> torch.device:
+    """Raise unless each tensor of `got` has the dtype and shape of `want`
+    and all lie on one device; returns the device."""
+    for key, (shape, dtype) in want.items():
+        t = got[key]
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: {key} must be {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    devs = {t.device for t in got.values()}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: all inputs must be on one device")
+    return devs.pop()
+
+
+def _class_shapes(M1: int, B: int, G: int) -> dict:
+    return {"m": ((G,), torch.int32), "span": ((G,), torch.int64),
+            "el": ((G,), torch.int32), "er": ((G,), torch.int32),
+            "dok": ((M1 + 2 * B, G), torch.int8),
+            "aok": ((M1 + 2 * B, G), torch.int8)}
+
+
 def combine(SL, SR, m, span, dok, aok, el, er, B: int, min_intron: int):
-    """Best (j, cl, cr) per gap from the two flank DPs.
+    """Best (j, cl, cr) per gap from the two flank DPs, on the CPU.
 
     SL, SR [M+1, 2B+1, G] float32; m, el, er [G] int32; span [G] int64;
     dok, aok [M+2B+1, G] int8.  Returns (score f32, j, cl, cr, vote int32,
-    found bool), each [G].  CUDA tensors launch csrc/combine.cu; CPU
-    tensors run the plain PyTorch version."""
+    found bool), each [G].  On the card the flanks and the combine are one
+    kernel, `junction_place`: CUDA tensors raise here."""
     if B != B_DEF:
         raise ValueError(f"combine: band must be {B_DEF}, got {B}")
     if SL.dim() != 3 or SL.shape != SR.shape:
@@ -204,59 +227,89 @@ def combine(SL, SR, m, span, dok, aok, el, er, B: int, min_intron: int):
     M1, W, G = SL.shape
     if W != 2 * B + 1:
         raise ValueError(f"SL has {W} shifts, band {B} needs {2 * B + 1}")
-    want = {"m": ((G,), torch.int32), "span": ((G,), torch.int64),
-            "el": ((G,), torch.int32), "er": ((G,), torch.int32),
-            "dok": ((M1 + 2 * B, G), torch.int8),
-            "aok": ((M1 + 2 * B, G), torch.int8)}
-    got = {"m": m, "span": span, "el": el, "er": er, "dok": dok, "aok": aok}
-    for name, (shape, dtype) in want.items():
-        t = got[name]
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"combine: {name} must be {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
     if SL.dtype != torch.float32 or SR.dtype != torch.float32:
         raise TypeError("combine: SL / SR must be float32")
-    dev = SL.device
-    if any(t.device != dev for t in (SR, *got.values())):
-        raise ValueError("combine: all inputs must be on one device")
+    dev = _check("combine", {"SL": SL, "SR": SR, "m": m, "span": span,
+                             "dok": dok, "aok": aok, "el": el, "er": er},
+                 {"SL": ((M1, W, G), torch.float32),
+                  "SR": ((M1, W, G), torch.float32),
+                  **_class_shapes(M1, B, G)})
+    if dev.type != "cpu":
+        raise ValueError(f"combine: runs on the CPU only, got {dev}; on the "
+                         "card call junction_place, which runs the flank "
+                         "DPs and the combine in one kernel")
+    return combine_reference(SL, SR, m, span, dok, aok, el, er, B,
+                             min_intron)
+
+
+def junction_place_reference(q, qr, lwin, rwin, m, span, dok, aok, el, er,
+                             B: int, min_intron: int):
+    """Plain PyTorch version of the junction kernel, step for step the
+    reference's `_junction_scan`: each flank's shift DP, then the
+    combine."""
+    SL = shift_dp_reference(q, lwin, m, B)
+    SR = shift_dp_reference(qr, rwin, m, B)
+    return combine_reference(SL, SR, m, span, dok, aok, el, er, B,
+                             min_intron)
+
+
+def junction_place(q, qr, lwin, rwin, m, span, dok, aok, el, er, B: int,
+                   min_intron: int):
+    """Best (j, cl, cr) per gap: both flank shift DPs and the combine.
+
+    q, qr [M, G] int32 (the gap queries, forward and reversed); lwin, rwin
+    [M+B, G] int32 (the reference windows); m, el, er [G] int32; span [G]
+    int64; dok, aok [M+2B+1, G] int8 (`prepare_junction_batch`'s arrays).
+    Returns (score f32, j, cl, cr, vote int32, found bool), each [G].
+    CUDA tensors launch csrc/junction.cu; CPU tensors run
+    `junction_place_reference`."""
+    if B != B_DEF:
+        raise ValueError(f"junction_place: band must be {B_DEF}, got {B}")
+    if q.dim() != 2:
+        raise ValueError(f"junction_place: q must be [M, G], got "
+                         f"{tuple(q.shape)}")
+    M, G = q.shape
+    dev = _check("junction_place",
+                 {"q": q, "qr": qr, "lwin": lwin, "rwin": rwin, "m": m,
+                  "span": span, "dok": dok, "aok": aok, "el": el, "er": er},
+                 {"q": ((M, G), torch.int32), "qr": ((M, G), torch.int32),
+                  "lwin": ((M + B, G), torch.int32),
+                  "rwin": ((M + B, G), torch.int32),
+                  **_class_shapes(M + 1, B, G)})
     if dev.type == "cpu":
-        return combine_reference(SL, SR, m, span, dok, aok, el, er, B,
-                                 min_intron)
+        return junction_place_reference(q, qr, lwin, rwin, m, span, dok, aok,
+                                        el, er, B, min_intron)
     if dev.type != "cuda":
-        raise ValueError(f"combine: unsupported device {dev}")
-    lib = _build.load()
-    SL, SR, m, span, dok, aok, el, er = (
-        t.contiguous() for t in (SL, SR, m, span, dok, aok, el, er))
+        raise ValueError(f"junction_place: unsupported device {dev}")
     score = torch.empty(G, dtype=torch.float32, device=dev)
     bj, bcl, bcr, vote = (torch.empty(G, dtype=torch.int32, device=dev)
                           for _ in range(4))
     found = torch.empty(G, dtype=torch.bool, device=dev)
+    if G == 0:
+        return score, bj, bcl, bcr, vote, found
+    lib = _build.load()
+    ins = [t.contiguous() for t in (q, qr, lwin, rwin, m, span, dok, aok, el,
+                                    er)]
     with torch.cuda.device(dev):
         start = _build.start_event(dev)
-        rc = lib.lr2_combine(
-            SL.data_ptr(), SR.data_ptr(), m.data_ptr(), span.data_ptr(),
-            dok.data_ptr(), aok.data_ptr(), el.data_ptr(), er.data_ptr(),
-            M1 - 1, G, B, int(min_intron), score.data_ptr(), bj.data_ptr(),
-            bcl.data_ptr(), bcr.data_ptr(), vote.data_ptr(),
-            found.data_ptr(), _build.stream_handle(dev))
-        _build.launched("combine", rc, start, dev)
+        rc = lib.lr2_junction(
+            *(t.data_ptr() for t in ins), M, G, B, int(min_intron),
+            score.data_ptr(), bj.data_ptr(), bcl.data_ptr(), bcr.data_ptr(),
+            vote.data_ptr(), found.data_ptr(), _build.stream_handle(dev))
+        _build.launched("junction", rc, start, dev)
     return score, bj, bcl, bcr, vote, found
 
 
 def junction_batch(batch: dict, min_intron: int, device) -> Tuple[np.ndarray,
                                                                    ...]:
     """Placements (score, j, cl, cr, vote, found) as numpy arrays for a
-    `prepare_junction_batch` dict: both flank shift DPs and the combine on
-    `device` (the reference's junction_batch_scan / _pallas)."""
-    B = batch["B"]
+    `prepare_junction_batch` dict, through `junction_place` on `device`
+    (the reference's junction_batch_scan / _pallas)."""
     dev = torch.device(device)
-    t = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(dev)
-         for k in ("q", "qr", "lwin", "rwin", "m", "span", "dok", "aok",
-                   "el", "er")}
-    SL = shift_dp(t["q"], t["lwin"], t["m"], B)
-    SR = shift_dp(t["qr"], t["rwin"], t["m"], B)
-    out = combine(SL, SR, t["m"], t["span"], t["dok"], t["aok"], t["el"],
-                  t["er"], B, min_intron)
+    t = [torch.from_numpy(np.ascontiguousarray(batch[k])).to(dev)
+         for k in ("q", "qr", "lwin", "rwin", "m", "span", "dok", "aok", "el",
+                   "er")]
+    out = junction_place(*t, batch["B"], min_intron)
     return tuple(x.cpu().numpy() for x in out)
 
 

@@ -16,8 +16,9 @@ Layout, as `_shift_dp_scan` takes it:
   out S [M+1, 2*band+1, G] float32 — integer scores, so exact in float32
 
 Callers: the polish placement DP (align/polish.py `polish_best_pair`,
-band 8, int8) and the device junction DP (ops/junction.py
-`junction_batch`, band 4, int32, both flanks before `combine`).
+band 8, int8).  The device junction DP runs its two band-4 flanks inside
+csrc/junction.cu; its plain version (ops/junction.py
+`junction_place_reference`) calls `shift_dp_reference` for each.
 """
 
 from __future__ import annotations

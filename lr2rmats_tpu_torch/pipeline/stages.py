@@ -401,13 +401,13 @@ def run_pipeline(cfg: PipelineConfig,
                     st = aligner.stats
                     log("align", "%s: phases seed=%.1fs dispatch=%.1fs "
                         "build=%.1fs polish=%.1fs; kernel launches chain=%d"
-                        " shift_dp=%d combine=%d; junction gaps on %s: %d "
+                        " shift_dp=%d junction=%d; junction gaps on %s: %d "
                         "(%d placed); device seed lookups: %d", sample,
                         st.get("seed_s", 0.0), st.get("dispatch_s", 0.0),
                         st.get("build_s", 0.0), st.get("polish_s", 0.0),
                         st["chain_kernel_launches"],
                         st["shift_dp_kernel_launches"],
-                        st["combine_kernel_launches"], device,
+                        st["junction_kernel_launches"], device,
                         st["junction_gaps"], st["junction_found"],
                         st["seed_lookup_calls"])
                     hdr = sam_header(aligner.refs).encode()

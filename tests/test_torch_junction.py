@@ -3,11 +3,14 @@ the JAX reference (lr2rmats_tpu/ops/splice_device.py) on the CPU.
 
 The batch packing and op recovery equal the reference's; the plain combine
 equals JAX `_combine` on all six outputs and every lane, not-found lanes
-included; the whole junction batch equals both reference backends (the
+included; `junction_place` (both flank DPs and the combine, the slice's
+fused path; its plain version here) equals JAX `_junction_scan`, on the
+batches of the aligner's recipe and on the junction kernel's edge
+batches; the whole junction batch equals both reference backends (the
 lax.scan one and the Pallas kernel in interpret mode); and the aligner with
 the device junction backend emits the reference's SAM bytes.  Every
 comparison is exact: the scores are integers or multiples of 3/8.  The
-kernel-against-plain test is in tests/test_torch_kernels.py.
+kernel-against-plain tests are in tests/test_torch_kernels.py.
 """
 
 import jax.numpy as jnp
@@ -21,7 +24,8 @@ from lr2rmats_tpu_torch.align.batch import TorchBatchAligner
 from lr2rmats_tpu_torch.ops import junction as J
 from lr2rmats_tpu_torch.ops.splice import shift_dp
 from tests.test_torch_chain import one_torch_thread  # noqa: F401 (autouse)
-from tests.test_torch_kernels import junction_gaps
+from tests.test_torch_kernels import (JUNCTION_EDGES, junction_edge_batch,
+                                      junction_gaps)
 
 CASES = [("random", 300), ("ties", 120), ("m0", 30)]
 
@@ -70,6 +74,46 @@ def test_combine_reference_matches_jax(kind, G, min_intron):
         assert found.any()
 
 
+def _jax_junction_scan(arrays, min_intron):
+    return sd._junction_scan(*(jnp.asarray(a) for a in arrays), 4,
+                             jnp.int64(min_intron))
+
+
+def _assert_same(got, want):
+    for name, g, w in zip(("score", "j", "cl", "cr", "vote", "found"), got,
+                          want):
+        assert g.numpy().dtype == np.asarray(w).dtype, name
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+
+
+@pytest.mark.parametrize("kind,G", CASES)
+@pytest.mark.parametrize("min_intron", [30, 2000])
+def test_junction_place_matches_jax(kind, G, min_intron):
+    """junction_place on the CPU == JAX _junction_scan bit for bit on all
+    six outputs, not-found lanes included."""
+    ref, gaps = junction_gaps(G + 4, G, kind)
+    b = J.prepare_junction_batch(ref, gaps)
+    arrays = [b[k] for k in ("q", "qr", "lwin", "rwin", "m", "span", "dok",
+                             "aok", "el", "er")]
+    got = J.junction_place(*(torch.from_numpy(a) for a in arrays), 4,
+                           min_intron)
+    _assert_same(got, _jax_junction_scan(arrays, min_intron))
+    if min_intron == 2000 or kind == "random":
+        assert not got[5].all()
+    if kind != "ties" and min_intron == 30:
+        assert got[5].any()
+
+
+@pytest.mark.parametrize("kind", JUNCTION_EDGES)
+def test_junction_place_edges_match_jax(kind):
+    """The junction kernel's edge batches (tests/test_torch_kernels.py
+    junction_edge_batch) through junction_place on the CPU == JAX
+    _junction_scan."""
+    arrays = junction_edge_batch(kind, 37, 5, 30)
+    got = J.junction_place(*(torch.from_numpy(a) for a in arrays), 4, 30)
+    _assert_same(got, _jax_junction_scan(arrays, 30))
+
+
 def test_combine_chunks_agree():
     """The plain version's gap chunks give the one-pass result."""
     ref, gaps = junction_gaps(9, 70, "random")
@@ -102,6 +146,30 @@ def test_combine_rejects_bad_inputs():
         J.combine(SL, SR, *bad, 4, 30)
     with pytest.raises(ValueError, match="SL / SR"):
         J.combine(SL, SR[:, :, :4], *args, 4, 30)
+    meta = [t.to("meta") for t in (SL, SR, *args)]
+    with pytest.raises(ValueError, match="junction_place"):
+        J.combine(*meta, 4, 30)                 # the card runs the fused one
+    # the same checks at the fused entry point
+    t = [torch.from_numpy(b[k]) for k in ("q", "qr", "lwin", "rwin", "m",
+                                          "span", "dok", "aok", "el", "er")]
+    with pytest.raises(ValueError, match="band"):
+        J.junction_place(*t, 8, 30)
+    bad = list(t)
+    bad[5] = bad[5].to(torch.int32)
+    with pytest.raises(ValueError, match="span"):
+        J.junction_place(*bad, 4, 30)
+    bad = list(t)
+    bad[2] = bad[2][:-1]                            # lwin must be [M+B, G]
+    with pytest.raises(ValueError, match="lwin"):
+        J.junction_place(*bad, 4, 30)
+    bad = list(t)
+    bad[0] = bad[0].to(torch.int8)                  # q must be int32
+    with pytest.raises(ValueError, match="q must"):
+        J.junction_place(*bad, 4, 30)
+    bad = list(t)
+    bad[9] = bad[9].to("meta")
+    with pytest.raises(ValueError, match="one device"):
+        J.junction_place(*bad, 4, 30)
 
 
 @pytest.mark.parametrize("kind,G", CASES)
@@ -158,4 +226,4 @@ def test_aligner_device_junctions_sam_matches(monkeypatch, seed_env):
     assert st["junction_calls"] > 0
     assert st["junction_gaps"] >= st["junction_found"] > 0
     assert (st["seed_lookup_calls"] > 0) == bool(seed_env)
-    assert st["combine_kernel_launches"] == 0       # plain versions on CPU
+    assert st["junction_kernel_launches"] == 0      # plain versions on CPU

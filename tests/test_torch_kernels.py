@@ -10,15 +10,17 @@ reference):
 
 Every comparison is exact: the chain kernels round each float32 add and
 multiply like the plain version's elementwise ops and call the same
-log2f; the log probe calls the logf that torch.log calls; the shift-DP scores are integers; the combine scores are integers or
-multiples of 3/8, evaluated in the plain version's order; the Hamming
-counts and seed ranges are integers.
+log2f; the log probe calls the logf that torch.log calls; the shift-DP
+scores are integers; the junction kernel's scores are integers or
+multiples of 3/8, exact in float32 in the plain version's order and in
+its own; the Hamming counts and seed ranges are integers.
 
 The tests named *_cards / *_every_card need two or more cards and run in
 one call on a four-card machine (README, "One process, several cards").
 
-`junction_gaps` and `sim_dataset` are shared with the CPU tests
-(tests/test_torch_junction.py, tests/test_torch_pipeline.py).
+`junction_gaps`, `junction_edge_batch` and `sim_dataset` are shared
+with the CPU tests (tests/test_torch_junction.py,
+tests/test_torch_pipeline.py).
 """
 
 import json
@@ -45,22 +47,24 @@ pytestmark = pytest.mark.cuda
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
-def junction_gaps(seed, n, kind="random", ref_len=100_000):
+def junction_gaps(seed, n, kind="random", ref_len=100_000, m=None):
     """(ref, gaps) of (q, left_ref, right_ref, el, er) junction gaps.
 
     random: the tests/test_splice_device.py recipe (m < 64, half with a
     planted GT..AG, 15% query mutations) plus anchor-prior centres and a
     quarter of spans too short for any intron (not-found lanes);
     ties: homopolymer query and windows, so many cells tie;
-    m0: empty gap queries."""
+    m0: empty gap queries.  m: the same query length for every gap."""
     rng = np.random.default_rng(seed)
     ref = rng.integers(0, 4, ref_len).astype(np.uint8)
     if kind == "ties":
         ref[:] = 0
         ref[rng.random(ref_len) < 0.01] = 2
     gaps = []
+    m_fixed = m
     for _ in range(n):
-        m = 0 if kind == "m0" else int(rng.integers(0, 64))
+        m = 0 if kind == "m0" else (
+            m_fixed if m_fixed is not None else int(rng.integers(0, 64)))
         lr = int(rng.integers(100, ref_len - 20000))
         short = kind == "random" and rng.random() < 0.25
         span = int(rng.integers(m + 4, m + 20) if short else
@@ -77,6 +81,57 @@ def junction_gaps(seed, n, kind="random", ref_len=100_000):
         gaps.append((q, lr, lr + span, int(rng.integers(0, 7)),
                      int(rng.integers(0, 7))))
     return ref, gaps
+
+
+JUNCTION_EDGES = ("m1", "m64", "neg_flanks", "no_class", "intron_edge",
+                  "ties_lanes", "wide_prior", "m_outside")
+
+
+def junction_edge_batch(kind, G, seed=0, min_intron=30):
+    """`prepare_junction_batch`'s arrays (q, qr, lwin, rwin, m, span, dok,
+    aok, el, er) for G gaps of one edge kind of the junction DP:
+    m1 / m64: every query 1 or MGAP = 64 bases (M = m);
+    neg_flanks: empty queries whose spans let only cl + cr <= 3 through
+    the intron gate, so every open cell sums NEG flank cells (-2e18)
+    while the gated ones are NEG;
+    no_class: no donor (even gaps) or no acceptor (odd gaps) class
+    anywhere, so every cell is gated;
+    intron_edge: spans put the gate's threshold on cl + cr at -2..18;
+    ties_lanes: homopolymer gaps with a GT / AG class at every offset, so
+    equal maxima lie in many lanes;
+    wide_prior: anchor-prior centres 0, 7, 2^19, 2^19 + 1, 10^7 and
+    -2^30 (past 2^19 the kernel keeps the plain order of the sum);
+    m_outside: m from -3 to 80 against M = 64 (past every batch the
+    aligner packs; the plain version clips)."""
+    from lr2rmats_tpu_torch.ops.junction import (MGAP,
+                                                 prepare_junction_batch)
+    rng = np.random.default_rng(seed + 100)
+    m = {"m1": 1, "m64": MGAP, "neg_flanks": 0}.get(kind)
+    ref, gaps = junction_gaps(seed, G, "ties" if kind == "ties_lanes"
+                              else "random", m=m)
+    b = prepare_junction_batch(ref, gaps)
+    B = b["B"]
+    if kind == "neg_flanks":
+        b["span"] = (min_intron + b["m"] - 2 * B
+                     + rng.integers(0, 4, G)).astype(np.int64)
+    elif kind == "no_class":
+        b["dok"][:, ::2] = -1
+        b["aok"][:, 1::2] = -1
+    elif kind == "intron_edge":
+        b["span"] = (min_intron + b["m"] - 2 * B
+                     + rng.integers(-2, 19, G)).astype(np.int64)
+    elif kind == "ties_lanes":
+        b["dok"][b["dok"] >= 0] = 1
+        b["aok"][b["aok"] >= 0] = 1
+    elif kind == "wide_prior":
+        wide = np.array([0, 7, 1 << 19, (1 << 19) + 1, 10 ** 7, -(1 << 30)])
+        b["el"] = rng.choice(wide, G).astype(np.int32)
+        b["er"] = rng.choice(wide, G).astype(np.int32)
+    elif kind == "m_outside":
+        b["m"] = rng.integers(-3, 81, G).astype(np.int32)
+    return [np.ascontiguousarray(b[k]) for k in
+            ("q", "qr", "lwin", "rwin", "m", "span", "dok", "aok", "el",
+             "er")]
 
 
 def sim_dataset(out, long_reads=300, short_pairs=1200, genes=10,
@@ -530,31 +585,78 @@ def test_slice_split_over_every_card(dev, backend):
     assert got == want
 
 
-def _junction_tensors(ref, gaps, dev):
+def _junction_exact(arrays, dev, min_intron=30):
+    """csrc/junction.cu == junction_place_reference on all six outputs,
+    one launch; returns the plain version's outputs."""
+    from lr2rmats_tpu_torch.ops.junction import (junction_place,
+                                                 junction_place_reference)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+    before = _build.LAUNCHES["junction"]
+    got = junction_place(*t, 4, min_intron)
+    assert _build.LAUNCHES["junction"] == before + 1
+    want = junction_place_reference(*t, 4, min_intron)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("score", "j", "cl", "cr", "vote", "found"), got,
+                          want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    return want
+
+
+def _batch_arrays(ref, gaps):
     from lr2rmats_tpu_torch.ops.junction import prepare_junction_batch
     b = prepare_junction_batch(ref, gaps)
-    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-         for k, v in b.items() if k != "B"}
-    SL = shift_dp(t["q"], t["lwin"], t["m"], 4)
-    SR = shift_dp(t["qr"], t["rwin"], t["m"], 4)
-    return (SL, SR, t["m"], t["span"], t["dok"], t["aok"], t["el"], t["er"],
-            4)
+    return [b[k] for k in ("q", "qr", "lwin", "rwin", "m", "span", "dok",
+                           "aok", "el", "er")]
 
 
 @pytest.mark.parametrize("kind,G", [("random", 2048), ("ties", 300),
-                                    ("m0", 40), ("random", 5)])
+                                    ("m0", 40), ("random", 5),
+                                    ("random", 1), ("random", 4097)])
 def test_combine_kernel_matches_plain(dev, kind, G):
-    from lr2rmats_tpu_torch.ops.junction import combine, combine_reference
-    args = _junction_tensors(*junction_gaps(G, G, kind), dev)
-    before = _build.LAUNCHES["combine"]
-    got = combine(*args, 30)
-    assert _build.LAUNCHES["combine"] == before + 1
-    want = combine_reference(*args, 30)
-    torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and torch.equal(g, w)
-    if kind == "random":
+    """The junction kernel (both flank DPs and the combine, which was
+    csrc/combine.cu alone) == its plain version, G not a multiple of the
+    8 gaps a block takes included."""
+    want = _junction_exact(_batch_arrays(*junction_gaps(G, G, kind)), dev)
+    if kind == "random" and G > 5:
         assert bool(want[5].any()) and not bool(want[5].all())
+
+
+@pytest.mark.parametrize("min_intron", [30, 2000])
+@pytest.mark.parametrize("kind", JUNCTION_EDGES)
+def test_junction_kernel_edge_gaps(dev, kind, min_intron):
+    """csrc/junction.cu == the plain version bit for bit on the edges of
+    its design: fixed m of 0, 1 and M, NEG flank sums against gated
+    cells, no valid class, the intron gate's threshold at every value,
+    equal maxima across lanes, the plain-order path of wide prior
+    centres, and m outside [0, M]."""
+    want = _junction_exact(junction_edge_batch(kind, 37, 5, min_intron),
+                           dev, min_intron)
+    if kind == "neg_flanks":
+        assert not bool(want[5].any())
+    if kind == "no_class":
+        assert bool((want[0] == -1e18).all())
+
+
+def test_combine_alone_refuses_the_card(dev):
+    """On the card the combine runs inside the junction kernel: combine()
+    on CUDA tensors raises instead of running its plain version."""
+    from lr2rmats_tpu_torch.ops.junction import combine
+    S = torch.zeros((65, 9, 4), dtype=torch.float32, device=dev)
+    i32 = torch.zeros(4, dtype=torch.int32, device=dev)
+    cls = torch.zeros((73, 4), dtype=torch.int8, device=dev)
+    span = torch.zeros(4, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="junction_place"):
+        combine(S, S, i32, span, cls, cls, i32, i32, 4, 30)
+
+
+def _hamming_args(dev, buf, comb, off, rid, pos, shift=0):
+    """Tensors on dev; with shift, buf and comb are views that start
+    `shift` bytes into their allocations."""
+    def put(a):
+        return torch.from_numpy(np.r_[np.zeros(shift, a.dtype), a]).to(
+            dev)[shift:]
+    return [put(buf), put(comb)] + [torch.from_numpy(a).to(dev)
+                                    for a in (off, rid, pos)]
 
 
 def test_hamming_kernel_matches_plain(dev):
@@ -577,6 +679,56 @@ def test_hamming_kernel_matches_plain(dev):
     want = hamming_reference(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shift", [0, 1, 3])
+def test_hamming_kernel_alignments(dev, shift):
+    """Word path edges: reads of 0, 1, 7, 149, 150 and 301 bases starting
+    at every offset mod 8 of the read buffer, each against windows at
+    every offset mod 8 of the buffer, over its start and over its end;
+    with shift, both buffers start off a 4-byte boundary."""
+    from lr2rmats_tpu_torch.junctions.sjcount_device import (
+        hamming, hamming_reference)
+    rng = np.random.default_rng(11 + shift)
+    n = 20_000
+    buf = rng.integers(0, 4, n).astype(np.uint8)
+    lens = np.repeat(np.array([0, 1, 7, 149, 150, 301]), 8)
+    fill = np.arange(len(lens)) % 8 + 1           # walks the offsets mod 8
+    off = np.zeros(2 * len(lens) + 1, np.int64)
+    np.cumsum(np.stack([lens, fill], 1).reshape(-1), out=off[1:])
+    comb = buf[rng.integers(0, n - off[-1]) + np.arange(off[-1])].copy()
+    comb[rng.random(len(comb)) < 0.05] = 3
+    pos = []
+    rid = []
+    for s, L in enumerate(lens):
+        base = int(rng.integers(1, (n - 400) // 8)) * 8
+        pos += [base + r for r in range(8)]
+        pos += [-L - 2, -5, 0, 1, 3, 4, 5]        # over the start
+        pos += [n - L - 9, n - L - 8, n - L - 7, n - L, n - L + 3, n - 1,
+                n + 2]                            # over the end
+        rid += [2 * s] * 22
+    args = _hamming_args(dev, buf, comb, off, np.array(rid, np.int32),
+                         np.array(pos, np.int64), shift)
+    if shift:
+        assert args[0].data_ptr() % 4 and args[1].data_ptr() % 4
+    got = hamming(*args)
+    want = hamming_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool((want == 0).any()) and bool((want > 0).any())
+
+
+def test_hamming_kernel_no_candidates(dev):
+    from lr2rmats_tpu_torch.junctions.sjcount_device import hamming
+    buf = torch.zeros(64, dtype=torch.uint8, device=dev)
+    comb = torch.zeros(8, dtype=torch.uint8, device=dev)
+    off = torch.tensor([0, 8], dtype=torch.int64, device=dev)
+    before = _build.LAUNCHES["hamming"]
+    mm = hamming(buf, comb, off, torch.zeros(0, dtype=torch.int32,
+                                             device=dev),
+                 torch.zeros(0, dtype=torch.int64, device=dev))
+    assert mm.shape == (0,) and mm.dtype == torch.int32
+    assert _build.LAUNCHES["hamming"] == before       # nothing to launch
 
 
 def test_seed_lookup_card_matches_cpu(dev):
@@ -607,7 +759,7 @@ def test_pipeline_on_card_matches_host_reference(dev, tmp_path, monkeypatch):
         monkeypatch.setenv(var, "1")
     before = dict(_build.LAUNCHES)
     run_pipeline(pipeline_config(data, tmp_path / "port"), device="cuda")
-    for k in ("chain_dp_backtrack", "shift_dp", "combine", "hamming"):
+    for k in ("chain_dp_backtrack", "shift_dp", "junction", "hamming"):
         assert _build.LAUNCHES[k] > before[k], k
     assert pipeline_outputs(tmp_path / "port") == \
         pipeline_outputs(tmp_path / "ref")
