@@ -117,7 +117,10 @@ SWITCHES = ("LR2RMATS_DEVICE_JUNCTIONS", "LR2RMATS_DEVICE_SEED",
 PATH_KERNELS = ("chain_dp_backtrack", "chain_dp", "shift_dp", "junction",
                 "hamming", "log_probe")
 MESH_READS, MESH_Q, MESH_H, MESH_H_WIDE = 1536, 128, 4, 8
-CHAIN_DP_RANDOM = ((1024, 256), (4096, 32))      # (A, B)
+# (A, B, window): random rows at the main path's window 64, and at windows
+# 256 and 1024 (the DP-only kernel's rings of 256 and 1024 slots)
+CHAIN_DP_RANDOM = ((1024, 256, 64), (4096, 32, 64), (1024, 256, 256),
+                   (2048, 64, 1024))
 LOOKUP_READS, LOOKUP_BATCH = 768, 256
 GROUP_TIMEOUT_S = 300
 # the bound of a kernel: the larger of the bytes it must move over the
@@ -1071,28 +1074,37 @@ def check_chain_dp(aligner, first_batch, mesh_rows, dev):
     """8: chain_dp == its plain version on the first batch's A=128 rows
     (phase 3's chunk), the rows 7a chained and random rows at
     CHAIN_DP_RANDOM, and == the fused kernel's f / parent where A <=
-    K_MAX_A; returns (max_abs_err, {label: (ms, plain_ms)})."""
+    K_MAX_A; prints each shape's time a step of its widest row, in ns and
+    in cycles at the SM clock read beside the run; returns (max_abs_err,
+    {label: (ms, queued_ms, plain_ms, bytes, ops)})."""
     import torch
+    from lr2rmats_tpu_torch.align.chain import ChainParams
     from lr2rmats_tpu_torch.diag.measure import (anchor_rows, cuda_ms,
-                                                 queued_ms)
+                                                 queued_ms, sm_clock_mhz)
     from lr2rmats_tpu_torch.ops.chain import (K_MAX_A, chain_dp,
                                               chain_dp_backtrack,
                                               chain_dp_reference,
                                               chain_params_for_kernel)
-    kp = chain_params_for_kernel(aligner.p.chain)
+    kp0 = chain_params_for_kernel(aligner.p.chain)
     prep = aligner._prepare_dispatch(aligner._batch_anchors(first_batch))
     rng = np.random.default_rng(SEED)
     A0, C0 = CHAIN_SHAPES[0]
     qp, gp, nn, n_real = batch_rows(prep, A0, C0, rng)
     cases = [(f"first batch A={A0} B={C0} ({n_real} workload rows)",
-              (qp, gp, nn))]
+              (qp, gp, nn), kp0)]
     mq, mg, mn = (t.cpu().numpy() for t in mesh_rows)
-    cases.append((f"7a mesh rows A={mq.shape[1]} B={len(mn)}", (mq, mg, mn)))
+    cases.append((f"7a mesh rows A={mq.shape[1]} B={len(mn)}", (mq, mg, mn),
+                  kp0))
     rng = np.random.default_rng(SEED + 5)
-    for A, B in CHAIN_DP_RANDOM:
-        cases.append((f"random A={A} B={B}", anchor_rows(rng, B, A)))
+    for A, B, window in CHAIN_DP_RANDOM:
+        kp = kp0 if window == kp0.window else chain_params_for_kernel(
+            ChainParams(window=window))
+        cases.append((f"random A={A} B={B} window={window}",
+                      anchor_rows(rng, B, A), kp))
+    mhz = sm_clock_mhz(dev)
+    say("dp", f"SM clock under load (nvidia-smi clocks.sm): {mhz:.0f} MHz")
     worst, times = 0.0, {}
-    for label, arrays in cases:
+    for label, arrays, kp in cases:
         q, g, n = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                    for a in arrays)
         A = q.shape[1]
@@ -1117,10 +1129,14 @@ def check_chain_dp(aligner, first_batch, mesh_rows, dev):
         times[label] = (ms, queued, plain_ms,
                         valid_bytes(n, q, g) + nbytes(n, f, parent),
                         CHAIN_STEP_OPS * chain_steps(n, kp.window))
+        widest = max(int(n.max()), 1)
+        step_ns = queued * 1e6 / widest
         say("dp", f"chain_dp {label}: {int(n.sum())} anchors (widest row "
             f"{int(n.max())}); exact vs plain={same} max_abs_err={err}; "
             f"f / parent equal to chain_dp_backtrack: {fused}; kernel "
-            f"{ms:.4f} ms (queued {queued:.4f}), plain {plain_ms:.2f} ms")
+            f"{ms:.4f} ms (queued {queued:.4f}), plain {plain_ms:.2f} ms; "
+            f"widest row's step {step_ns:.1f} ns = "
+            f"{step_ns * mhz / 1e3:.0f} cycles at {mhz:.0f} MHz")
         if not (same and fused_same):
             bad = (f != rf).any(1) | (parent != rparent).any(1)
             b = int(torch.nonzero(bad)[0]) if bool(bad.any()) else -1
@@ -1134,7 +1150,8 @@ def check_log_probe(dev):
     bytes, ops, and the times of the PyTorch call torch.log(x) * LOG2E
     back to back and queued))."""
     import torch
-    from lr2rmats_tpu_torch.diag.measure import cuda_ms, queued_ms
+    from lr2rmats_tpu_torch.diag.measure import (cuda_ms, launch_floor_ms,
+                                                 queued_ms)
     from lr2rmats_tpu_torch.diag.chain_parity import (LOG2E, log_probe,
                                                       log_probe_reference,
                                                       probe_sample)
@@ -1157,13 +1174,20 @@ def check_log_probe(dev):
         f"launch {ev['log_probe'] / 20:.4f} ms)")
     lib_ms = cuda_ms(lambda: torch.log(x) * LOG2E, 20)
     lib_queued = queued_ms(lambda: torch.log(x) * LOG2E, 20)
+    floor = launch_floor_ms(dev)
+    bound_ms, bound_by = bound(nbytes(x, y), LOG_PROBE_OPS * x.numel())
     say("diag", f"log_probe: torch.log(x) * LOG2E {lib_ms:.4f} ms (queued "
         f"{lib_queued:.4f}) against the kernel's {ms:.4f} (queued "
-        f"{queued:.4f})")
-    if not same:
+        f"{queued:.4f}); launch floor (t.add_(0) on one element, queued) "
+        f"{floor:.4f} ms; bound {bound_ms:.5f} ms by {bound_by}")
+    odd = x.reshape(-1)[1:]         # 4 bytes off 16-byte alignment
+    odd_same = torch.equal(log_probe(odd), log_probe_reference(odd))
+    say("diag", f"log_probe on x[1:] ({odd.numel()} values, 4 bytes off "
+        f"16-byte alignment): exact={odd_same}")
+    if not (same and odd_same):
         raise AssertionError("log_probe disagrees with its plain version")
     return err, (ms, queued, plain_ms, nbytes(x, y),
-                 LOG_PROBE_OPS * x.numel(), lib_ms, lib_queued)
+                 LOG_PROBE_OPS * x.numel(), lib_ms, lib_queued, floor)
 
 
 def run_diag(dev):
@@ -1440,7 +1464,7 @@ def main(argv=None) -> int:
         entry("chain_dp_backtrack", "chain.cu",
               "lr2rmats_tpu/ops/chain_pallas.py:39", chain_err,
               chain_t[CHAIN_SHAPES[0]]),
-        entry("chain_dp", "chain_dp.cu", "lr2rmats_tpu/ops/chain_pallas.py:39",
+        entry("chain_dp", "chain.cu", "lr2rmats_tpu/ops/chain_pallas.py:39",
               max(dp_err, mesh_err, wide_err),
               next(iter(dp_t.values()))),          # first batch, A=128
         entry("shift_dp", "shift_dp.cu",
@@ -1455,6 +1479,7 @@ def main(argv=None) -> int:
               probe_err, probe_t[:5], lib_ms=probe_t[5],
               lib_queued=probe_t[6]),
     ]
+    kernels[-1]["launch_floor_queued_ms"] = probe_t[7]
     # the junction flanks' shift DP: a second shape of the shift_dp entry
     flank_bound, flank_by = bound(flank_t[3], flank_t[4])
     polish_t = shift_t[SHIFT_SHAPES[1][:3]]

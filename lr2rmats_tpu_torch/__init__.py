@@ -8,8 +8,8 @@ its command line), under the same subpackage and file name as in the
 reference, and it imports neither jax nor the reference package.  Its
 accelerator layer:
 
-  * `ops.chain`  — the fused chaining DP + backtrack (csrc/chain.cu) and
-    the DP alone at any width (csrc/chain_dp.cu), the counterparts of
+  * `ops.chain`  — the fused chaining DP + backtrack and the DP alone at
+    any width (both in csrc/chain.cu), the counterparts of
     lr2rmats_tpu/ops/chain_pallas.py and ops/chain_jax.py;
   * `ops.splice` — the banded shift DP (csrc/shift_dp.cu), the counterpart
     of lr2rmats_tpu/ops/splice_device.py;

@@ -6,8 +6,9 @@ Counterpart of scripts/diag_chain_pallas.py.  There, the Pallas chain DP
 arm that takes the log out of the cost, and a Pallas log probe (`kern`)
 shows how its ln(x) * log2(e) differs from XLA's log2.  Here:
 
-  * `chain_dp` (csrc/chain_dp.cu, the counterpart of `_kernel`) against
-    `chain_dp_backtrack(dp_out=True)` (csrc/chain.cu, whose f / parent are
+  * `chain_dp` (csrc/chain.cu's DP-only kernel, the counterpart of
+    `_kernel`) against `chain_dp_backtrack(dp_out=True)` (the fused
+    kernel of csrc/chain.cu, whose f / parent are
     those of chain_jax's scan) and against the plain DP, on the
     reference's random anchor rows (seed 41, B=256, A=128) and at A=4096
     (where the fused kernel, capped at 512 anchors, sits out on the card),

@@ -1,22 +1,22 @@
 """Time variants of the hand kernels side by side on the card.
 
 Each variant is one CUDA source built alone into its own library:
-`csrc/chain.cu`, `csrc/shift_dp.cu`, `csrc/junction.cu` and
-`csrc/hamming.cu` of this package, and any other sources that export the
+`csrc/chain.cu` (its fused kernel and its DP-only kernel),
+`csrc/shift_dp.cu`, `csrc/junction.cu`, `csrc/hamming.cu` and
+`csrc/log_probe.cu` of this package, and any other sources that export the
 same C entry points (for example from a `git archive` of an earlier
-commit).  The junction kernel is also timed against an earlier pair of
-sources that did its work in three launches (`--split`): `shift_dp.cu` on
-each flank, then `combine.cu` (`lr2_combine`).  Every variant runs on the same seeded
-inputs at chip_smoke.py's main-path shapes, must equal the plain PyTorch
-version bit for bit, and is timed by both of `diag/measure.py`'s timers
-(20 calls after a warm-up: back to back as the host issues them, and
-queued behind a spin kernel), in turns: first in order, then in reverse.
+commit; an earlier `chain_dp.cu` exports `lr2_chain_dp`).  Every variant
+runs on the same seeded inputs at chip_smoke.py's shapes (the DP-only
+chain kernel on random rows at its dp shapes and windows), must equal the
+plain PyTorch version bit for bit, and is timed by both of
+`diag/measure.py`'s timers (20 calls after a warm-up: back to back as the
+host issues them, and queued behind a spin kernel), in turns: first in
+order, then in reverse.
 
     python -m lr2rmats_tpu_torch.diag.kernel_variants
-        [--chain OTHER/chain.cu ...] [--shift OTHER/shift_dp.cu ...]
-        [--junction OTHER/junction.cu ...]
-        [--split OTHER/shift_dp.cu OTHER/combine.cu]
-        [--hamming OTHER/hamming.cu ...]
+        [--chain OTHER/chain.cu ...] [--chain-dp OTHER/chain_dp.cu ...]
+        [--shift OTHER/shift_dp.cu ...] [--junction OTHER/junction.cu ...]
+        [--hamming OTHER/hamming.cu ...] [--log-probe OTHER/log_probe.cu ...]
 
 Prints one line per variant and shape, the card's name and power limit
 (nvidia-smi), then one JSON line with the mean of the two turns for each
@@ -43,6 +43,7 @@ from ..align.chain import ChainParams
 from ..ops import _build
 from ..ops.chain import (chain_dp_backtrack_reference, chain_dp_reference,
                          chain_params_for_kernel)
+from .chain_parity import log_probe_reference, probe_sample
 from ..junctions.sjcount_device import hamming_reference
 from ..ops.junction import (B_DEF, junction_place_reference,
                             prepare_junction_batch)
@@ -50,16 +51,16 @@ from ..ops.splice import shift_dp_reference
 from .measure import anchor_rows, cuda_ms, queued_ms
 
 CHAIN_SHAPES = ((128, 1664), (64, 320))                 # (A, B)
+# chip_smoke.py's dp shapes: its first-batch and mesh-row widths (random
+# rows here), its random rows, and its windows past the main path's 64
+DP_SHAPES = ((128, 1664, 64), (512, 1536, 64), (1024, 256, 64),
+             (4096, 32, 64), (1024, 256, 256), (2048, 64, 1024))
+LOG_PROBE_NS = (37376, 1 << 22)          # the diagnostic's [292, 128]; 16 MB
 SHIFT_SHAPES = ((8, 192, 512, np.int8), (4, 64, 3485, np.int32))
 JUNCTION_G, MIN_INTRON = 3485, 20
 HAMMING_C, HAMMING_L, HAMMING_N = 131072, 150, 20_000_000
 REPS = 20
 MIN_SCORE = 20.0
-# the C entry point of an earlier combine.cu (the junction kernel's second
-# half before it was fused with the flank DPs)
-COMBINE_SIGNATURE = [ctypes.c_void_p] * 8 + [
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + [
-    ctypes.c_void_p] * 7
 
 
 def build_variant(src: str) -> ctypes.CDLL:
@@ -83,9 +84,6 @@ def build_variant(src: str) -> ctypes.CDLL:
                 print(f"{src}: {line.strip()}", flush=True)
     lib = ctypes.CDLL(so)
     _build.bind(lib, [n for n in _build.SIGNATURES if hasattr(lib, n)])
-    if hasattr(lib, "lr2_combine"):
-        lib.lr2_combine.restype = ctypes.c_int
-        lib.lr2_combine.argtypes = COMBINE_SIGNATURE
     return lib
 
 
@@ -140,6 +138,45 @@ def chain_case(lib, inputs, kp):
     return run, exact
 
 
+def chain_dp_case(lib, inputs, kp, want):
+    """(launch fn, check fn) of one DP-only chain variant on one shape;
+    want: the plain version's (f, parent)."""
+    q, g, n = inputs
+    B, A = q.shape
+    f = torch.empty((B, A), dtype=torch.float32, device=q.device)
+    par = torch.empty((B, A), dtype=torch.int32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+
+    def run():
+        rc = lib.lr2_chain_dp(
+            q.data_ptr(), g.data_ptr(), n.data_ptr(), B, A, kp.window, kp.k,
+            kp.max_qgap, kp.max_intron, kp.min_intron_gap, kp.gap_open,
+            kp.gap_scale, kp.intron_scale, f.data_ptr(), par.data_ptr(),
+            stream)
+        if rc != 0:
+            raise RuntimeError(f"chain_dp variant refused its launch: {rc}")
+
+    def exact():
+        run()
+        return torch.equal(f, want[0]) and torch.equal(par, want[1])
+    return run, exact
+
+
+def log_probe_case(lib, x):
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def run():
+        rc = lib.lr2_log_probe(x.data_ptr(), y.data_ptr(), x.numel(), stream)
+        if rc != 0:
+            raise RuntimeError(f"log_probe variant refused its launch: {rc}")
+
+    def exact():
+        run()
+        return torch.equal(y, log_probe_reference(x))
+    return run, exact
+
+
 def shift_case(lib, inputs, band):
     q, win, m = inputs
     M, G = q.shape
@@ -182,37 +219,21 @@ def junction_inputs(rng, G):
                            "aok", "el", "er")]
 
 
-def junction_case(lib, inputs, parent=None):
-    """(launch fn, check fn) of the junction kernel of `lib`, or, with
-    `parent` = (shift_dp lib, combine lib), of the three launches it
-    replaces."""
+def junction_case(lib, inputs):
+    """(launch fn, check fn) of the junction kernel of `lib`."""
     q, qr, lwin, rwin, m, span, dok, aok, el, er = inputs
     M, G = q.shape
     dev = q.device
-    W = 2 * B_DEF + 1
     score = torch.empty(G, dtype=torch.float32, device=dev)
     bj, bcl, bcr, vote = (torch.empty(G, dtype=torch.int32, device=dev)
                           for _ in range(4))
     found = torch.empty(G, dtype=torch.bool, device=dev)
     outs = [t.data_ptr() for t in (score, bj, bcl, bcr, vote, found)]
-    S = [torch.empty((M + 1, W, G), dtype=torch.float32, device=dev)
-         for _ in range(2)]
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def run():
-        if parent is None:
-            rc = lib.lr2_junction(*(t.data_ptr() for t in inputs), M, G,
-                                  B_DEF, MIN_INTRON, *outs, stream)
-        else:
-            rc = 0
-            for S_, qq, ww in zip(S, (q, qr), (lwin, rwin)):
-                rc = rc or parent[0].lr2_shift_dp(
-                    qq.data_ptr(), ww.data_ptr(), m.data_ptr(),
-                    S_.data_ptr(), M, G, B_DEF, 4, stream)
-            rc = rc or parent[1].lr2_combine(
-                S[0].data_ptr(), S[1].data_ptr(),
-                *(t.data_ptr() for t in (m, span, dok, aok, el, er)), M, G,
-                B_DEF, MIN_INTRON, *outs, stream)
+        rc = lib.lr2_junction(*(t.data_ptr() for t in inputs), M, G, B_DEF,
+                              MIN_INTRON, *outs, stream)
         if rc != 0:
             raise RuntimeError(f"junction variant refused its launch: {rc}")
 
@@ -264,74 +285,89 @@ def hamming_case(lib, inputs):
     return run, exact
 
 
-def main(argv=None) -> int:
+# (flag, entry point, this package's source, what the variants replace)
+KINDS = (("chain", "lr2_chain_dp_backtrack", "chain.cu",
+          "other chain.cu sources (the fused kernel) to time beside"),
+         ("chain_dp", "lr2_chain_dp", "chain.cu",
+          "other sources of lr2_chain_dp (the DP alone) to time beside"),
+         ("shift", "lr2_shift_dp", "shift_dp.cu",
+          "other shift_dp.cu sources to time beside"),
+         ("junction", "lr2_junction", "junction.cu",
+          "other junction.cu sources to time beside"),
+         ("hamming", "lr2_hamming", "hamming.cu",
+          "other hamming.cu sources to time beside"),
+         ("log_probe", "lr2_log_probe", "log_probe.cu",
+          "other log_probe.cu sources to time beside"))
+
+
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--chain", nargs="*", default=[],
-                    help="other chain.cu sources to time beside")
-    ap.add_argument("--shift", nargs="*", default=[],
-                    help="other shift_dp.cu sources to time beside")
-    ap.add_argument("--junction", nargs="*", default=[],
-                    help="other junction.cu sources to time beside")
-    ap.add_argument("--split", nargs=2, default=None,
-                    metavar=("SHIFT_DP_CU", "COMBINE_CU"),
-                    help="an earlier shift_dp.cu and combine.cu, timed as "
-                    "the three launches junction.cu replaces")
-    ap.add_argument("--hamming", nargs="*", default=[],
-                    help="other hamming.cu sources to time beside")
-    args = ap.parse_args(argv)
+    for kind, _, _, what in KINDS:
+        ap.add_argument("--" + kind.replace("_", "-"), dest=kind, nargs="*",
+                        default=[], metavar="SOURCE", help=what)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_variants: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     csrc = os.path.dirname(_build.SOURCES[0])
-    parent = list(args.split or [])
-    builds = ([("chain.cu", os.path.join(csrc, "chain.cu"))]
-              + [(src, src) for src in args.chain]
-              + [("shift_dp.cu", os.path.join(csrc, "shift_dp.cu"))]
-              + [(src, src) for src in args.shift]
-              + [("junction.cu", os.path.join(csrc, "junction.cu"))]
-              + [(src, src) for src in args.junction]
-              + [(src, src) for src in parent]
-              + [("hamming.cu", os.path.join(csrc, "hamming.cu"))]
-              + [(src, src) for src in args.hamming])
-    with ThreadPoolExecutor(len(builds)) as pool:       # one nvcc each
-        libs = list(pool.map(lambda b: build_variant(b[1]), builds))
-    named = dict(zip((b[1] for b in builds), libs))
-    parent_libs = tuple(named[src] for src in parent)
-    chain_vars = [(b[0], lib) for b, lib in zip(builds, libs)
-                  if hasattr(lib, "lr2_chain_dp_backtrack")]
-    shift_vars = [(b[0], lib) for b, lib in zip(builds, libs)
-                  if hasattr(lib, "lr2_shift_dp") and b[1] not in parent]
-    junction_vars = [(b[0], lib) for b, lib in zip(builds, libs)
-                     if hasattr(lib, "lr2_junction")]
-    hamming_vars = [(b[0], lib) for b, lib in zip(builds, libs)
-                    if hasattr(lib, "lr2_hamming")]
+    # (label, source) of each kind's variants, this package's first
+    variants = {kind: [(own, os.path.join(csrc, own))]
+                + [(src, src) for src in getattr(args, kind)]
+                for kind, _, own, _ in KINDS}
+    sources = sorted({src for vs in variants.values() for _, src in vs})
+    with ThreadPoolExecutor(len(sources)) as pool:      # one nvcc each
+        libs = dict(zip(sources, pool.map(build_variant, sources)))
+    for kind, entry, _, _ in KINDS:
+        for label, src in variants[kind]:
+            if not hasattr(libs[src], entry):
+                raise SystemExit(f"{src} does not export {entry}")
+
+    def of(kind):
+        return [(label, libs[src]) for label, src in variants[kind]]
 
     kp = chain_params_for_kernel(ChainParams())
     rng = np.random.default_rng(123)
     cases: List[Tuple[str, str, object, object]] = []
     for A, B in CHAIN_SHAPES:
         inputs = [torch.from_numpy(a).to(dev) for a in anchor_rows(rng, B, A)]
-        for name, lib in chain_vars:
+        for name, lib in of("chain"):
             cases.append((name, f"A={A} B={B}", *chain_case(lib, inputs, kp)))
+    for A, B, window in DP_SHAPES:
+        kw = chain_params_for_kernel(ChainParams(window=window))
+        inputs = [torch.from_numpy(a).to(dev) for a in anchor_rows(rng, B, A)]
+        want = chain_dp_reference(*inputs, kw)
+        for name, lib in of("chain_dp"):
+            cases.append((name, f"dp A={A} B={B} window={window}",
+                          *chain_dp_case(lib, inputs, kw, want)))
     for band, M, G, dt in SHIFT_SHAPES:
         inputs = [torch.from_numpy(a).to(dev)
                   for a in code_windows(rng, band, M, G, dt)]
-        for name, lib in shift_vars:
+        for name, lib in of("shift"):
             cases.append((name, f"band={band} M={M} G={G}",
                           *shift_case(lib, inputs, band)))
     inputs = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
               for a in junction_inputs(rng, JUNCTION_G)]
-    shape = f"junction G={JUNCTION_G}"
-    for name, lib in junction_vars:
-        cases.append((name, shape, *junction_case(lib, inputs)))
-    if parent_libs:
-        cases.append((f"{parent[0]} x2 + {parent[1]}", shape,
-                      *junction_case(None, inputs, parent_libs)))
+    for name, lib in of("junction"):
+        cases.append((name, f"junction G={JUNCTION_G}",
+                      *junction_case(lib, inputs)))
     inputs = [torch.from_numpy(a).to(dev) for a in hamming_inputs(rng)]
-    for name, lib in hamming_vars:
+    for name, lib in of("hamming"):
         cases.append((name, f"hamming C={HAMMING_C} L={HAMMING_L}",
                       *hamming_case(lib, inputs)))
+    probe = torch.from_numpy(probe_sample()[1]).to(dev).reshape(-1)
+    wide = torch.from_numpy(rng.uniform(1.0, 2e5, LOG_PROBE_NS[1] + 1)
+                            .astype(np.float32)).to(dev)
+    for label, x in ((f"n={LOG_PROBE_NS[0]}", probe),
+                     (f"n={LOG_PROBE_NS[0] - 1} x[1:]", probe[1:]),
+                     (f"n={LOG_PROBE_NS[1]}", wide[:-1])):
+        for name, lib in of("log_probe"):
+            cases.append((name, f"log_probe {label}",
+                          *log_probe_case(lib, x)))
 
     bad = 0
     timers = {"ms": cuda_ms, "queued_ms": queued_ms}

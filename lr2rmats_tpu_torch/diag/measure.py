@@ -6,6 +6,9 @@ Two timers, both over CUDA events around `reps` calls after a warm-up call:
 kernel shorter than a call's Python is timed at the host's launch rate;
 `queued_ms` first queues a spin kernel (~5 ms) so that the calls' kernels
 wait behind it and run back to back, and times the kernels alone.
+`launch_floor_ms` is the queued time of the least a launch can do (one
+PyTorch op on one element); `sm_clock_mhz` reads the SM clock while the
+card is busy, to turn a step time into cycles.
 """
 
 from __future__ import annotations
@@ -45,6 +48,30 @@ def queued_ms(fn, reps: int) -> float:
     e.record()
     torch.cuda.synchronize()
     return s.elapsed_time(e) / reps
+
+
+def launch_floor_ms(dev, reps: int = 20) -> float:
+    """queued_ms of `t.add_(0)` on a one-element float32 tensor on `dev`:
+    the floor under any kernel's queued time."""
+    import torch
+    t = torch.zeros(1, dtype=torch.float32, device=dev)
+    return queued_ms(lambda: t.add_(0), reps)
+
+
+def sm_clock_mhz(dev) -> float:
+    """The SM clock (MHz) that `nvidia-smi --query-gpu=clocks.sm` reads
+    while a spin kernel (~0.3 s) keeps the card busy."""
+    import subprocess
+
+    import torch
+    with torch.cuda.device(dev):
+        torch.cuda._sleep(60 * SPIN_CYCLES)
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+             "nounits", "-i", str(torch.cuda.current_device())],
+            capture_output=True, text=True, timeout=60, check=True).stdout
+        torch.cuda.synchronize()
+    return float(out.strip().splitlines()[0])
 
 
 def anchor_rows(rng, B: int, A: int):

@@ -32,13 +32,14 @@ from typing import Dict, List, Optional, Tuple
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
 SOURCES = [os.path.join(_PKG, "csrc", name)
-           for name in ("chain.cu", "chain_dp.cu", "shift_dp.cu",
-                        "junction.cu", "hamming.cu", "log_probe.cu")]
+           for name in ("chain.cu", "shift_dp.cu", "junction.cu",
+                        "hamming.cu", "log_probe.cu")]
 BUILD_DIR = os.path.join(_REPO, "build", "lr2rmats_tpu_torch")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas=-v"]
 
+# launch names; chain.cu launches both chain_dp_backtrack and chain_dp
 KERNELS = ("chain_dp_backtrack", "chain_dp", "shift_dp", "junction",
            "hamming", "log_probe")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}

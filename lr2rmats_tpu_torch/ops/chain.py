@@ -4,10 +4,11 @@ Counterpart of lr2rmats_tpu/ops/chain_pallas.py (`_kernel`, the DP) and
 lr2rmats_tpu/ops/chain_jax.py (`_scan_core` + `_backtrack_core`, the
 production fused call; `_chain_scan_T`, the DP alone).  Two kernels, one
 warp per read each (their headers say what bounds them and how the design
-answers): `csrc/chain.cu` fuses the DP with the backtrack for rows of up
-to K_MAX_A anchors (`chain_dp_backtrack`); `csrc/chain_dp.cu` runs the DP
-alone at any number of anchors (`chain_dp`, `chain_anchors_batch`).  The
-plain PyTorch versions here follow chain_jax step for step.
+answers), both in `csrc/chain.cu` on one step loop: the DP fused with the
+backtrack for rows of up to K_MAX_A anchors (`chain_dp_backtrack`), and
+the DP alone at any number of anchors (`chain_dp`,
+`chain_anchors_batch`).  The plain PyTorch versions here follow chain_jax
+step for step.
 
 Contract (the reference's `unpack_chain_result`, without its 2-bit
 packing):
@@ -233,8 +234,8 @@ def chain_dp(qpos: torch.Tensor, rpos: torch.Tensor, n_anchor: torch.Tensor,
              p: KernelChainParams) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chain DP alone at any number of anchors per row: (f float32
     [B, A], parent int32 [B, A]), -1e18 / -1 beyond n_anchor.  CUDA
-    tensors launch csrc/chain_dp.cu; CPU tensors run the plain PyTorch
-    version."""
+    tensors launch csrc/chain.cu's DP-only kernel (windows up to 1024;
+    a wider one is refused); CPU tensors run the plain PyTorch version."""
     _check(qpos, rpos, n_anchor)
     dev = qpos.device
     if dev.type == "cpu":

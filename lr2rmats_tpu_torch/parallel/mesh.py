@@ -14,8 +14,8 @@ process, each rank here runs its own shard and the collectives are
 explicit `dist.all_gather` calls over the mesh's dimension groups, with
 the pieces put in mesh-coordinate order (jax's tiled all-gather order).
 The chain DP is the port's DP-only kernel (ops/chain.py `chain_dp`,
-csrc/chain_dp.cu on CUDA tensors, its plain version on CPU tensors), which
-takes any number of anchors a read, as the reference's
+csrc/chain.cu's DP-only kernel on CUDA tensors, its plain version on CPU
+tensors), which takes any number of anchors a read, as the reference's
 `_chain_score_local` does.
 """
 
@@ -101,7 +101,8 @@ def sharded_align_step(mesh, chain_params: Optional[ChainParams] = None,
     chain DP runs, and the per-read max over the valid anchors is
     all-gathered over dp.  Rows without an anchor score -1e18.
 
-    Any Q * H: the DP is csrc/chain_dp.cu, which has no anchor cap.
+    Any Q * H: the DP is csrc/chain.cu's DP-only kernel, which has no
+    anchor cap.
     plain=True runs the DP's plain PyTorch version (chain_dp_reference)
     on the same device instead of the kernel, to hold one against the
     other.  Hashes are compared as int64 on the device, which keeps the

@@ -171,6 +171,77 @@ def test_log_probe_plain_matches_pallas_kern_interpret():
         assert (u == 0).sum() > 0.95 * n, msg
 
 
+@pytest.mark.parametrize("A,B,seed", [(64, 8, 30), (128, 6, 31),
+                                      (37, 5, 32)])
+def test_plain_dp_takes_a_window_over_A_as_A(A, B, seed):
+    """Every predecessor lies fewer than A steps back, so the plain DP at
+    window 2A equals it at window A, bit for bit, and both equal
+    chain_jax.chain_anchors_batch at window A (parents exact, f at rtol
+    1e-5): the invariant behind the kernels' min(window, A)."""
+    qp, rp, n = _rows(seed, B, A)
+    q, r, nn = (torch.from_numpy(a) for a in (qp, rp, n))
+    f_a, par_a = chain_dp_reference(
+        q, r, nn, chain_params_for_kernel(ChainParams(window=A)))
+    f_2a, par_2a = chain_dp_reference(
+        q, r, nn, chain_params_for_kernel(ChainParams(window=2 * A)))
+    assert torch.equal(f_a, f_2a) and torch.equal(par_a, par_2a)
+    jf, jparent = jax_batch(qp, rp, n, ChainParams(window=A))
+    np.testing.assert_array_equal(par_a.numpy(), jparent)
+    np.testing.assert_allclose(f_a.numpy(), jf, rtol=RTOL)
+    # some parent lies past the main path's 64-slot window where A > 64
+    back = np.arange(A)[None, :] - par_a.numpy()
+    assert back[par_a.numpy() >= 0].max() > min(A - 1, 64) // 2
+
+
+def test_log_probe_plain_on_an_unaligned_view_matches_pallas_kern():
+    """log_probe (its plain version on the CPU) over x[1:], a view 4 bytes
+    off 16-byte alignment, against the diagnostic's Pallas kern in
+    interpret mode on the same values: within the two ulps of
+    test_log_probe_plain_matches_pallas_kern_interpret, and exact on 95%."""
+    from jax.experimental import pallas as pl
+    x = torch.from_numpy(chain_parity.probe_sample()[1]).reshape(-1)
+    view = x[1:]
+    assert (view.data_ptr() - x.data_ptr()) == 4 and view.is_contiguous()
+    got = chain_parity.log_probe(view).numpy()
+    assert np.array_equal(got, chain_parity.log_probe_reference(view).numpy(),
+                          equal_nan=True)
+    n = view.numel()
+    padded = np.ones(-(-n // 128) * 128, np.float32)
+    padded[:n] = view.numpy()
+
+    def kern(x_ref, o_ref):
+        o_ref[:] = jnp.log(x_ref[:]) * jnp.float32(chain_parity.LOG2E)
+
+    want = np.asarray(pl.pallas_call(
+        kern, out_shape=jax.ShapeDtypeStruct((len(padded) // 128, 128),
+                                             jnp.float32),
+        interpret=True)(jnp.asarray(padded.reshape(-1, 128)))).reshape(-1)[:n]
+    fin = np.isfinite(want)
+    assert np.array_equal(np.isfinite(got), fin)
+    u = _ulps(got[fin], want[fin])
+    assert u.max() <= 2 and (u == 0).sum() > 0.95 * fin.sum()
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--chain-dp", "a/chain_dp.cu", "b/chain.cu"],
+     {"chain_dp": ["a/chain_dp.cu", "b/chain.cu"], "log_probe": []}),
+    (["--log-probe", "a/log_probe.cu", "--chain", "a/chain.cu"],
+     {"log_probe": ["a/log_probe.cu"], "chain": ["a/chain.cu"]}),
+    ([], {"chain": [], "chain_dp": [], "shift": [], "junction": [],
+          "hamming": [], "log_probe": []}),
+])
+def test_kernel_variants_parser(argv, want):
+    """diag/kernel_variants.py takes --chain-dp and --log-probe (parsed
+    here without a card) and no longer takes --split."""
+    from lr2rmats_tpu_torch.diag import kernel_variants
+    args = vars(kernel_variants.build_parser().parse_args(argv))
+    for key, value in want.items():
+        assert args[key] == value
+    with pytest.raises(SystemExit):
+        kernel_variants.build_parser().parse_args(
+            ["--split", "a/shift_dp.cu", "a/combine.cu"])
+
+
 def test_log_probe_wrapper_on_cpu():
     x = torch.tensor([1.0, 2.0, 1024.0, 3.0], dtype=torch.float32)
     before = dict(_build.LAUNCHES)

@@ -379,19 +379,24 @@ def test_chain_kernel_refills_the_cost_table(dev):
 
 def test_chain_kernel_cost_table_under_threads(dev):
     """Two host threads, each on its own stream, launch with different
-    parameters in turn; every launch reads the table of its own."""
+    parameters in turn, interleaving the fused kernel and the DP alone,
+    which share one cost table; every launch reads the table of its
+    own parameters."""
     import threading
     q, g, n = (torch.from_numpy(a).to(dev) for a in _anchor_rows(9, 512, 128))
     params = (chain_params_for_kernel(ChainParams()), _other_params())
-    want = [chain_dp_backtrack_reference(q, g, n, kp, 20.0) for kp in params]
+    want = [(chain_dp_backtrack_reference(q, g, n, kp, 20.0),
+             chain_dp_reference(q, g, n, kp)) for kp in params]
     results = [[], []]
 
     def work(t):
         with torch.cuda.stream(torch.cuda.Stream(dev)):
-            for k in range(12):
-                kp = params[(t + k) % 2]
-                results[t].append(((t + k) % 2,
-                                   chain_dp_backtrack(q, g, n, kp, 20.0)))
+            for k in range(16):
+                which = (t + k) % 2
+                fused = (k // 2) % 2 == t
+                got = (chain_dp_backtrack(q, g, n, params[which], 20.0)
+                       if fused else chain_dp(q, g, n, params[which]))
+                results[t].append((which, int(not fused), got))
             torch.cuda.synchronize()
 
     threads = [threading.Thread(target=work, args=(t,)) for t in range(2)]
@@ -399,18 +404,22 @@ def test_chain_kernel_cost_table_under_threads(dev):
         th.start()
     for th in threads:
         th.join()
-    assert not torch.equal(want[0][0], want[1][0])
+    assert not torch.equal(want[0][0][0], want[1][0][0])
+    assert not torch.equal(want[0][1][0], want[1][1][0])
     for res in results:
-        assert len(res) == 12
-        for which, got in res:
-            assert all(torch.equal(a, b) for a, b in zip(got, want[which]))
+        assert len(res) == 16
+        assert {(w, k) for w, k, _ in res} == {(0, 0), (0, 1), (1, 0),
+                                               (1, 1)}
+        for which, kernel, got in res:
+            assert all(torch.equal(a, b)
+                       for a, b in zip(got, want[which][kernel]))
 
 
 @pytest.mark.parametrize("A,B", [(128, 256), (512, 64), (1024, 64),
                                  (4096, 16), (8, 37)])
 def test_chain_dp_kernel_matches_plain(dev, A, B):
-    """csrc/chain_dp.cu == the plain DP at any width, and == the fused
-    kernel's f / parent where that takes the rows (A <= 512)."""
+    """csrc/chain.cu's DP-only kernel == the plain DP at any width, and ==
+    the fused kernel's f / parent where that takes the rows (A <= 512)."""
     kp = chain_params_for_kernel(ChainParams())
     q, g, n = (torch.from_numpy(a).to(dev) for a in _anchor_rows(A * B, B, A))
     before = _build.LAUNCHES["chain_dp"]
@@ -426,6 +435,98 @@ def test_chain_dp_kernel_matches_plain(dev, A, B):
         assert torch.equal(f, ff) and torch.equal(parent, fparent)
 
 
+def _chain_dp_exact(q, g, n, kp, fused=True):
+    """chain_dp == the plain DP bit for bit (one launch), and == the fused
+    kernel's f / parent where A <= 512 and `fused`; returns (f, parent)."""
+    before = _build.LAUNCHES["chain_dp"]
+    f, parent = chain_dp(q, g, n, kp)
+    assert _build.LAUNCHES["chain_dp"] == before + 1
+    rf, rparent = chain_dp_reference(q, g, n, kp)
+    torch.cuda.synchronize()
+    assert torch.equal(parent, rparent) and torch.equal(f, rf)
+    if fused and q.shape[1] <= 512:
+        _, _, _, ff, fparent = chain_dp_backtrack(q, g, n, kp, 20.0,
+                                                  dp_out=True)
+        assert torch.equal(f, ff) and torch.equal(parent, fparent)
+    return f, parent
+
+
+@pytest.mark.parametrize("window", [1, 31, 32, 33, 64, 65, 256, 257, 512,
+                                    513, 1000, 1024])
+def test_chain_dp_kernel_windows(dev, window):
+    """The DP-only kernel at windows that cross each of its ring sizes (64,
+    256, 512, 1024 slots), on rows wider than the window: half dense
+    colinear rows, where every slot of the window is valid, half random;
+    == the fused kernel where the rows fit it (A = 512)."""
+    rng = np.random.default_rng(window)
+    for A, B in ((max(2 * window, 96) + 7, 12), (512, 8)):
+        if A > 2100:
+            continue
+        qp, rp, ns = _anchor_rows(window + A, B, A)
+        for b in range(B // 2):
+            qp[b] = np.arange(A) * 3
+            rp[b] = 10_000 + np.arange(A) * 3 + rng.integers(0, 2, A).cumsum()
+            ns[b] = A
+        kp = chain_params_for_kernel(ChainParams(window=window))
+        f, parent = _chain_dp_exact(
+            *(torch.from_numpy(a).to(dev) for a in (qp, rp, ns)), kp)
+        par = parent[: B // 2].long().cpu()
+        back = torch.arange(A)[None, :] - par
+        assert bool((par >= 0).any())
+        assert bool((back[par >= 0] <= window).all())
+
+
+@pytest.mark.parametrize("kind", ["n_edges", "window_over_A", "ties",
+                                  "long_introns"])
+def test_chain_dp_kernel_edge_rows(dev, kind):
+    """The DP-only kernel on edge rows, == the plain DP and the fused
+    kernel: n = 0, 1, 31, 32, 33 and A (the chunk edges of its streamed
+    anchors and stored results); a window over A (taken as A); each anchor
+    four times over, so equal scores test first-index ties; STAR's 1 Mb
+    intron cap, whose dd range exceeds the cost table (the inline cost)."""
+    window = 64
+    if kind == "n_edges":
+        A, B = 200, 36
+        qp, rp, ns = _anchor_rows(11, B, A)
+        ns[:] = np.resize([0, 1, 31, 32, 33, A], B)
+        for b in range(B):          # full-length rows at every n
+            qp[b] = np.arange(A) * 5
+            rp[b] = 9_000 + np.arange(A) * 5 + (np.arange(A) // 40) * 700
+    elif kind == "window_over_A":
+        A, B, window = 300, 17, 1000
+        qp, rp, ns = _anchor_rows(12, B, A)
+    elif kind == "ties":
+        A, B = 400, 9
+        qp = np.zeros((B, A), np.int32)
+        rp = np.zeros((B, A), np.int32)
+        ns = np.full(B, A, np.int32)
+        rng = np.random.default_rng(13)
+        for b in range(B):
+            step = int(rng.integers(12, 40))
+            a = np.arange(A) // 4
+            qp[b] = 100 + step * a
+            rp[b] = 5000 + step * a + (a // 9) * int(rng.integers(0, 60))
+    else:
+        A, B = 700, 32
+        qp, rp, ns = _long_intron_rows(14, B, A)
+    params = ChainParams(window=window) if kind != "long_introns" else \
+        ChainParams(max_intron=1_000_000)
+    kp = chain_params_for_kernel(params)
+    q, g, n = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+               for a in (qp, rp, ns))
+    f, parent = _chain_dp_exact(q, g, n, kp)
+    pad = torch.arange(A, device=dev)[None, :] >= n[:, None]
+    assert bool((f[pad] == -1e18).all()) and bool((parent[pad] == -1).all())
+    if kind == "ties":
+        assert bool((parent[parent >= 0] % 4 == 0).all())
+    elif kind == "long_introns":
+        default = chain_params_for_kernel(ChainParams())
+        assert bool((chain_dp(q, g, n, kp)[0].max(1).values
+                     > chain_dp(q, g, n, default)[0].max(1).values).any())
+    if kind != "ties":
+        assert bool((parent >= 0).any())
+
+
 def test_log_probe_kernel_matches_plain(dev):
     """csrc/log_probe.cu == torch.log(x) * LOG2E, bit for bit, over the
     diagnostic's sample."""
@@ -436,6 +537,21 @@ def test_log_probe_kernel_matches_plain(dev):
     before = _build.LAUNCHES["log_probe"]
     got = log_probe(x)
     assert _build.LAUNCHES["log_probe"] == before + 1
+    assert torch.equal(got, log_probe_reference(x))
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 37376, 2 ** 20 + 3])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_log_probe_kernel_lengths_and_alignment(dev, n, offset):
+    """The log probe's 16-byte path and its scalar tail (n mod 4), and a
+    view 4 bytes off 16-byte alignment (x[1:]), == the plain version."""
+    from lr2rmats_tpu_torch.diag.chain_parity import (log_probe,
+                                                      log_probe_reference)
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.uniform(0.5, 3e5, n + offset)
+                         .astype(np.float32)).to(dev)[offset:]
+    assert x.numel() == n and (x.data_ptr() % 16 == 0) == (offset == 0)
+    got = log_probe(x)
     assert torch.equal(got, log_probe_reference(x))
 
 
