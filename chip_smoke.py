@@ -67,8 +67,18 @@ exits non-zero):
      step at 8 hits per seed (1024 anchors per read) against the plain
      step, exact; and the bench workload with devices=[cuda:0, cuda:0],
      identical to the unsplit run (on one card this exercises the row
-     split, not a second card).
-Launch counts are set to 0 before each path run of phases 4-8 (slices,
+     split, not a second card);
+  9. entry points: the functions of the port's measurement entry points at
+     reduced sizes: the bench's clean arm (lr2rmats_tpu_torch.bench
+     `run_arm`, 1536 reads, one timed pass, SAM and accuracy equal to the
+     host backend, exact exon chains 1.0); the ONT accuracy sweep's seed
+     123 at its full 1500 reads (`one_seed`: SAM equal to the host
+     backend, the fractions equal to ONT_ACCURACY.json); bench_sjcount at
+     200000 pairs with the host check (`run(check=True)`; the hamming
+     kernel must launch); the GRCh38 dry run's single-process arm at 3 x 4
+     Mb chromosomes and 2000 reads (`run_single`: device seed lookup
+     checked against the host lookup, SAM equal to the host backend).
+Launch counts are set to 0 before each path run of phases 4-9 (slices,
 pipeline, mesh steps, diagnostic) and read after it (the processes of 7b
 and 7c start at 0 and report theirs); every kernel must have been launched
 by one of them.  Then one JSON line with the kernels,
@@ -122,6 +132,11 @@ MESH_READS, MESH_Q, MESH_H, MESH_H_WIDE = 1536, 128, 4, 8
 CHAIN_DP_RANDOM = ((1024, 256, 64), (4096, 32, 64), (1024, 256, 256),
                    (2048, 64, 1024))
 LOOKUP_READS, LOOKUP_BATCH = 768, 256
+# phase 9: the entry points' reduced sizes
+ENTRY_CLEAN_READS = 1536
+ENTRY_SWEEP_SEED = 123
+ENTRY_SJ_PAIRS = 200_000
+ENTRY_DRYRUN = (3, 4.0, 2000)                    # chromosomes, Mb, reads
 GROUP_TIMEOUT_S = 300
 # the bound of a kernel: the larger of the bytes it must move over the
 # H100's HBM rate and the operations its inputs need over the float32 rate
@@ -195,13 +210,6 @@ def shift_dp_bytes(q, win, m, band, S) -> int:
     rows_w = int((mm + band).clamp(max=win.shape[0]).sum())
     return (rows_q * q.element_size() + rows_w * win.element_size()
             + nbytes(m, S))
-
-
-def card_line():
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
 
 
 def batch_rows(prep, A, C, rng):
@@ -628,25 +636,16 @@ def check_torch_ops(aligner, first_batch, dev):
 
 
 def align_slice(tag, aligner, seqset, sam_ref, dev):
-    """align_seqset_packed + emit_sam with launch counts and kernel times;
-    the SAM must equal the host backend's."""
-    import torch
-    from lr2rmats_tpu_torch.ops import _build
-    aligner.stats = aligner.fresh_stats()
-    torch.cuda.reset_peak_memory_stats(dev)
-    _build.reset_launches()
-    with _build.timing() as kernel_ms:
-        t0 = time.perf_counter()
-        rb = aligner.align_seqset_packed(seqset)
-        sam = rb.emit_sam(aligner.refs)
-        torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
-    if sam_ref is not None and sam != sam_ref:
+    """align_seqset_packed + emit_sam with launch counts and kernel times
+    (diag/measure.py `align_pass`); the SAM must equal the host
+    backend's."""
+    from lr2rmats_tpu_torch.diag.measure import align_pass, first_diff
+    p = align_pass(aligner, seqset, dev)
+    if sam_ref is not None and p["sam"] != sam_ref:
         raise AssertionError(f"{tag}: SAM bytes differ from the host "
-                             "backend: " + first_diff(sam, sam_ref))
-    return rb, sam, wall, launches, kernel_ms, dict(aligner.stats), \
-        torch.cuda.max_memory_allocated(dev) / 2**20
+                             "backend: " + first_diff(p["sam"], sam_ref))
+    return (p["rb"], p["sam"], p["wall_s"], p["launches"], p["kernel_ms"],
+            p["stats"], p["peak_device_mb"])
 
 
 def pipeline_outputs(out):
@@ -1214,13 +1213,57 @@ def widest_row(al, reads):
                    reads[off: off + DEFAULT_BATCH]))["dp"])
 
 
-def first_diff(a: bytes, b: bytes) -> str:
-    la, lb = a.split(b"\n"), b.split(b"\n")
-    for i, (x, y) in enumerate(zip(la, lb)):
-        if x != y:
-            return (f"record {i}:\n  port: {x[:300]!r}\n"
-                    f"  host: {y[:300]!r}")
-    return f"line counts differ: port {len(la)} vs host {len(lb)}"
+def run_entry_points(dev):
+    """9: the measurement entry points' functions at reduced sizes, each
+    with its own guard; returns the launches of each run."""
+    from lr2rmats_tpu_torch import bench
+    from lr2rmats_tpu_torch.ops import _build
+    from lr2rmats_tpu_torch.scripts import bench_sjcount, dryrun_grch38
+    from lr2rmats_tpu_torch.scripts import ont_accuracy_sweep as sweep
+    runs = []
+
+    def counted(fn):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        runs.append(dict(_build.LAUNCHES))
+        return out, time.perf_counter() - t0
+
+    arm, t = counted(lambda: bench.run_arm(GENOME_MB, ENTRY_CLEAN_READS,
+                                           None, 1, dev))
+    if arm["exact_exon_chain_frac"] != 1.0 or not runs[-1]["shift_dp"]:
+        raise AssertionError(f"bench clean arm: exact exon chains "
+                             f"{arm['exact_exon_chain_frac']}, launches "
+                             f"{runs[-1]}")
+    say("entry", f"bench clean arm ({t:.1f} s): " + json.dumps(
+        {k: arm[k] for k in ("n_reads", "reads_per_sec", "align_wall_s",
+                             "exact_exon_chain_frac", "idle_share",
+                             "launches", "kernel_ms", "peak_device_mb",
+                             "host_backend_wall_s", "setup_s")}))
+    want = sweep.expected(sweep.EXPECT, sweep.N_READS, sweep.GENOME_MB)
+    row, t = counted(lambda: sweep.one_seed(ENTRY_SWEEP_SEED, dev))
+    got = (row["exact_exon_chain_frac"], row["splice_site_recall"])
+    if want is None or got != want[ENTRY_SWEEP_SEED]:
+        raise AssertionError(f"sweep seed {ENTRY_SWEEP_SEED}: {got} against "
+                             f"ONT_ACCURACY.json's "
+                             f"{want and want[ENTRY_SWEEP_SEED]}")
+    say("entry", f"sweep seed {ENTRY_SWEEP_SEED} ({t:.1f} s, "
+        f"{sweep.N_READS} reads): {got} as in ONT_ACCURACY.json; "
+        + json.dumps(row))
+    sj, t = counted(lambda: bench_sjcount.run(ENTRY_SJ_PAIRS, device=dev,
+                                              check=True))
+    if not sj["detail"]["hamming_launches"]:
+        raise AssertionError("bench_sjcount did not launch the hamming "
+                             "kernel")
+    say("entry", f"bench_sjcount ({t:.1f} s): counts equal to the host "
+        "backend's; " + json.dumps(sj))
+    dry, t = counted(lambda: dryrun_grch38.run_single(dev, *ENTRY_DRYRUN))
+    if not (runs[-1]["chain_dp_backtrack"] and dry["seed_lookup_calls"]):
+        raise AssertionError(f"dry run: launches {runs[-1]}, seed lookups "
+                             f"{dry['seed_lookup_calls']}")
+    say("entry", f"dry run ({t:.1f} s): SAM equal to the host backend; "
+        + json.dumps(dry))
+    return runs
 
 
 def main(argv=None) -> int:
@@ -1240,6 +1283,7 @@ def main(argv=None) -> int:
         from lr2rmats_tpu_torch import synth
         from lr2rmats_tpu_torch.align.batch import (BatchAligner,
                                                     TorchBatchAligner)
+        from lr2rmats_tpu_torch.diag.measure import card_line
         from lr2rmats_tpu_torch.ops import _build
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})",
@@ -1442,11 +1486,16 @@ def main(argv=None) -> int:
         f"second card)")
     say("split", f"phase wall {time.perf_counter() - t_phase:.1f} s")
 
+    # 9. the measurement entry points
+    t_phase = time.perf_counter()
+    path_launches.extend(run_entry_points(dev))
+    say("entry", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+
     total = {k: sum(pl[k] for pl in path_launches) for k in PATH_KERNELS}
     for name, n in total.items():
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched by a "
-                                 "path run of phases 4-8")
+                                 "path run of phases 4-9")
 
     def entry(name, source, replaces, err, t, lib_ms=None, lib_queued=None):
         """One kernel of the JSON line; t = (ms, queued_ms, plain_ms, bytes,

@@ -48,7 +48,7 @@ from ..junctions.sjcount_device import hamming_reference
 from ..ops.junction import (B_DEF, junction_place_reference,
                             prepare_junction_batch)
 from ..ops.splice import shift_dp_reference
-from .measure import anchor_rows, cuda_ms, queued_ms
+from .measure import anchor_rows, card_line, cuda_ms, queued_ms
 
 CHAIN_SHAPES = ((128, 1664), (64, 320))                 # (A, B)
 # chip_smoke.py's dp shapes: its first-batch and mesh-row widths (random
@@ -384,11 +384,9 @@ def main(argv=None) -> int:
     for (key, name, shape), ts in times.items():
         print(f"{name} {shape} {key}: {ts[0]:.4f} / {ts[1]:.4f}",
               flush=True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60, check=True).stdout
-    print(card.strip().splitlines()[0], flush=True)
-    print(json.dumps({"card": card.strip().splitlines()[0], **{
+    card = card_line()
+    print(card, flush=True)
+    print(json.dumps({"card": card, **{
         key: {f"{name} {shape}": sum(ts) / len(ts)
               for (k, name, shape), ts in times.items() if k == key}
         for key in timers}}), flush=True)
