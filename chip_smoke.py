@@ -77,7 +77,17 @@ exits non-zero):
      200000 pairs with the host check (`run(check=True)`; the hamming
      kernel must launch); the GRCh38 dry run's single-process arm at 3 x 4
      Mb chromosomes and 2000 reads (`run_single`: device seed lookup
-     checked against the host lookup, SAM equal to the host backend).
+     checked against the host lookup, SAM equal to the host backend); MAPQ
+     calibration's two profiles at 1000 reads each on its 20 Mb genome
+     (calibrate_mapq `run_profile`: SAM, recorded reads and margin bins
+     equal to the host backend); the ONT failure analysis at 1536 reads
+     (analyze_ont_failures `analyze`: SAM equal to the host backend); and
+     the scaling script's arms of 1 and 2 processes of `python -m
+     lr2rmats_tpu_torch run` on phase 6's data as 4 samples
+     (bench_scaling_throughput `run_arms`: every file of output/ equal
+     across the arms).  Each of these runs, and the alignment of each
+     pipeline process (its aligner's counts, the warm-up apart), must
+     launch the chain kernel and shift_dp.
 Launch counts are set to 0 before each path run of phases 4-9 (slices,
 pipeline, mesh steps, diagnostic) and read after it (the processes of 7b
 and 7c start at 0 and report theirs); every kernel must have been launched
@@ -137,6 +147,9 @@ ENTRY_CLEAN_READS = 1536
 ENTRY_SWEEP_SEED = 123
 ENTRY_SJ_PAIRS = 200_000
 ENTRY_DRYRUN = (3, 4.0, 2000)                    # chromosomes, Mb, reads
+ENTRY_CALIBRATE_READS = 1000
+ENTRY_ANALYZE_READS = 1536
+ENTRY_SCALING_PROCS = (1, 2)
 GROUP_TIMEOUT_S = 300
 # the bound of a kernel: the larger of the bytes it must move over the
 # H100's HBM rate and the operations its inputs need over the float32 rate
@@ -660,17 +673,6 @@ def pipeline_outputs(out):
     return out_bytes
 
 
-def stage_walls(out):
-    """Wall seconds per stage from the pipeline's benchmark/ files."""
-    walls = {}
-    bdir = os.path.join(out, "benchmark")
-    for f in sorted(os.listdir(bdir)):
-        with open(os.path.join(bdir, f)) as fh:
-            walls[f.replace(".benchmark.txt", "")] = float(
-                fh.read().splitlines()[1].split()[0])
-    return walls
-
-
 def run_pipeline_phase(here, dev, card):
     """The scripts/simulate.py dataset at its defaults (synth.py); the
     port's CLI with the three device switches on the card; the port's
@@ -680,6 +682,8 @@ def run_pipeline_phase(here, dev, card):
     from lr2rmats_tpu_torch.io.fasta import Genome
     from lr2rmats_tpu_torch.ops import _build
     from lr2rmats_tpu_torch.pipeline.cli import main as port_main
+    from lr2rmats_tpu_torch.scripts.bench_scaling_throughput import \
+        stage_walls
     from lr2rmats_tpu_torch.synth import simulate_dataset
     work = os.path.join(here, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -735,8 +739,8 @@ def run_pipeline_phase(here, dev, card):
         raise AssertionError(f"pipeline outputs differ from run --cpu: "
                              f"{diff} ({len(want)} files)")
     line = {"port_wall_s": port_s, "cpu_wall_s": cpu_s,
-            "port_stage_walls_s": stage_walls(port_out),
-            "cpu_stage_walls_s": stage_walls(cpu_out),
+            "port_stage_walls_s": stage_walls(port_out, 1)[0],
+            "cpu_stage_walls_s": stage_walls(cpu_out, 1)[0],
             "launches": launches, "peak_device_mb": peak_mb,
             "files_identical": sorted(got), "bytes": {
                 k: len(v) for k, v in got.items()},
@@ -745,13 +749,6 @@ def run_pipeline_phase(here, dev, card):
     say("pipeline", f"card {port_s:.2f} s (run --cpu {cpu_s:.2f} s), "
         f"{len(got)} files byte-identical, launches {launches}")
     return launches
-
-
-def free_port() -> int:
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def run_group(cmds, env, cwd, timeout=GROUP_TIMEOUT_S):
@@ -809,7 +806,7 @@ def check_mesh_step(aligner, reads, dev, card, hits):
     from lr2rmats_tpu_torch.diag.measure import cuda_ms
     from lr2rmats_tpu_torch.ops import _build
     from lr2rmats_tpu_torch.parallel import mesh as mesh_mod
-    from lr2rmats_tpu_torch.parallel.distributed import backend
+    from lr2rmats_tpu_torch.parallel.distributed import backend, free_port
     from lr2rmats_tpu_torch.parallel.mesh import (make_mesh,
                                                   sharded_align_step)
     from lr2rmats_tpu_torch.ops.chain import chain_params_for_kernel
@@ -886,15 +883,6 @@ def check_mesh_step(aligner, reads, dev, card, hits):
     return launches, err, kernel_ms.get("chain_dp", 0.0), rows[0]
 
 
-def log_launches(path):
-    """The kernel launches a pipeline process logged."""
-    with open(path) as f:
-        for ln in f:
-            if "kernel launches {" in ln:
-                return json.loads(ln[ln.index("{"):])
-    raise AssertionError(f"{path}: no kernel launch line")
-
-
 def split_fasta(src, dst_a, dst_b):
     """The first half of src's records into dst_a, the rest into dst_b."""
     with open(src) as f:
@@ -923,8 +911,11 @@ def run_two_process_pipeline(here, card):
     port's CLI on the card, against the port's one-process pipeline on the
     CPU (`run --cpu`, switches off) on the same lists; returns the kernel
     launches of both processes."""
+    from lr2rmats_tpu_torch.parallel.distributed import free_port
     from lr2rmats_tpu_torch.pipeline.config import PipelineConfig
     from lr2rmats_tpu_torch.pipeline.stages import run_pipeline
+    from lr2rmats_tpu_torch.scripts.bench_scaling_throughput import (
+        log_align_launches, log_launches, output_files, stage_walls)
     work = os.path.join(here, "build", "chip_smoke")
     data = os.path.join(work, "data")
     longs = [os.path.join(work, f"long_{t}.fa") for t in "ab"]
@@ -952,9 +943,7 @@ def run_two_process_pipeline(here, card):
     t0 = time.perf_counter()
     run_pipeline(cfg, device="cpu")
     ref_s = time.perf_counter() - t0
-    got, want = ({f: open(os.path.join(o, "output", f), "rb").read()
-                  for f in sorted(os.listdir(os.path.join(o, "output")))}
-                 for o in (out, ref_out))
+    got, want = output_files(out), output_files(ref_out)
     diff = [k for k in sorted(set(got) | set(want))
             if got.get(k) != want.get(k)]
     if diff or len(want) != 15:
@@ -964,11 +953,12 @@ def run_two_process_pipeline(here, card):
     logs = [os.path.join(out, "logs", f"pipeline.p{pid}.log")
             for pid in range(2)]
     launches = [log_launches(p) for p in logs]
+    aligned = [log_align_launches(p) for p in logs]
     gather_b, gather_s = gathered_line(logs[0])
     line = {"long_reads_per_sample": n_reads,
             "process_walls_s": walls, "cpu_one_process_wall_s": ref_s,
-            "process_stage_walls_s": stage_walls(out),
-            "cpu_stage_walls_s": stage_walls(ref_out),
+            "process_stage_walls_s": stage_walls(out, 2),
+            "cpu_stage_walls_s": stage_walls(ref_out, 1)[0],
             "gathered_payload_bytes": gather_b, "gather_s": gather_s,
             "launches": launches, "files_identical": sorted(got),
             "card": card}
@@ -977,9 +967,12 @@ def run_two_process_pipeline(here, card):
         f"process, {ref_s:.2f} s; not alternated), {len(got)} files "
         f"byte-identical, {gather_b} payload bytes gathered in "
         f"{gather_s:.4f} s")
-    for name in ("chain_dp_backtrack", "shift_dp", "junction", "hamming"):
-        if not all(la[name] for la in launches):
-            raise AssertionError(f"a pipeline process did not launch {name}")
+    for name in ("chain", "shift_dp", "junction"):
+        if not all(la[name] for la in aligned):
+            raise AssertionError(f"a pipeline process's alignment did not "
+                                 f"launch {name}: {aligned}")
+    if not all(la["hamming"] for la in launches):
+        raise AssertionError("a pipeline process did not launch hamming")
     return launches
 
 
@@ -1027,6 +1020,7 @@ def run_sharded_lookup(here, genome, full, names, reads, n_reads, card):
     single-process full-index host backend run; returns both processes'
     launches."""
     from lr2rmats_tpu_torch.align.batch import BatchAligner
+    from lr2rmats_tpu_torch.parallel.distributed import free_port
     work = os.path.join(here, "build", "chip_smoke")
     out = os.path.join(work, "lookup")
     coord = f"127.0.0.1:{free_port()}"
@@ -1213,12 +1207,16 @@ def widest_row(al, reads):
                    reads[off: off + DEFAULT_BATCH]))["dp"])
 
 
-def run_entry_points(dev):
+def run_entry_points(here, dev):
     """9: the measurement entry points' functions at reduced sizes, each
-    with its own guard; returns the launches of each run."""
+    with its own guard; returns the launches of each run and of each
+    pipeline process."""
     from lr2rmats_tpu_torch import bench
     from lr2rmats_tpu_torch.ops import _build
-    from lr2rmats_tpu_torch.scripts import bench_sjcount, dryrun_grch38
+    from lr2rmats_tpu_torch.scripts import (analyze_ont_failures,
+                                            bench_sjcount, calibrate_mapq,
+                                            dryrun_grch38)
+    from lr2rmats_tpu_torch.scripts import bench_scaling_throughput as scaling
     from lr2rmats_tpu_torch.scripts import ont_accuracy_sweep as sweep
     runs = []
 
@@ -1263,6 +1261,40 @@ def run_entry_points(dev):
                              f"{dry['seed_lookup_calls']}")
     say("entry", f"dry run ({t:.1f} s): SAM equal to the host backend; "
         + json.dumps(dry))
+
+    def main_path(tag, launches):
+        if not (launches["chain_dp_backtrack"] and launches["shift_dp"]):
+            raise AssertionError(f"{tag}: launches {launches}")
+
+    for profile, seed in calibrate_mapq.PROFILES:
+        (rows, _, cal), t = counted(lambda: calibrate_mapq.run_profile(
+            profile, ENTRY_CALIBRATE_READS, seed, dev))
+        main_path(f"calibrate_mapq {cal['profile']}", runs[-1])
+        say("entry", f"calibrate_mapq {cal['profile']} ({t:.1f} s, "
+            f"{len(rows)} primaries): SAM, recorded reads and margin bins "
+            "equal to the host backend; " + json.dumps(cal))
+    (_, fail), t = counted(lambda: analyze_ont_failures.analyze(
+        ENTRY_ANALYZE_READS, dev))
+    main_path("analyze_ont_failures", runs[-1])
+    say("entry", f"analyze_ont_failures ({t:.1f} s): SAM equal to the host "
+        "backend; " + json.dumps(fail))
+    work = os.path.join(here, "build", "chip_smoke")
+    t0 = time.perf_counter()
+    sc = scaling.run_arms(os.path.join(work, "data"),
+                          os.path.join(work, "scaling"),
+                          list(ENTRY_SCALING_PROCS), "cuda")
+    for nproc, arm in sc["arms"].items():
+        for pid, proc in enumerate(arm["processes"]):
+            al = proc["align_launches"]
+            if not (al["chain"] and al["shift_dp"]) or \
+                    proc["launches"]["chain_dp"]:
+                raise AssertionError(f"scaling arm {nproc}, process {pid}: "
+                                     f"alignment launches {al}, all "
+                                     f"{proc['launches']}")
+            runs.append(proc["launches"])
+    say("entry", f"scaling arms {list(ENTRY_SCALING_PROCS)} "
+        f"({time.perf_counter() - t0:.1f} s): output/ identical across the "
+        "arms; " + json.dumps(sc))
     return runs
 
 
@@ -1488,7 +1520,7 @@ def main(argv=None) -> int:
 
     # 9. the measurement entry points
     t_phase = time.perf_counter()
-    path_launches.extend(run_entry_points(dev))
+    path_launches.extend(run_entry_points(here, dev))
     say("entry", f"phase wall {time.perf_counter() - t_phase:.1f} s")
 
     total = {k: sum(pl[k] for pl in path_launches) for k in PATH_KERNELS}

@@ -214,6 +214,10 @@ class BatchAligner:
                              else default_threads())
         self._pool = None
         self._pool_lock = threading.Lock()
+        # scripts/calibrate_mapq.py support: record the raw score margin
+        # of every primary record (qname -> 1 - s2/s1)
+        self.record_margins = False
+        self._mapq_margins: Dict[str, float] = {}
 
     def close(self) -> None:
         """Release the lazy extend-thread pool (it is otherwise leaked
@@ -867,6 +871,11 @@ class BatchAligner:
                        if len(cands_by_read[ri]) > 1 else 0.0
                        for ri, _ in flat], np.float64)[kept]
         mq = mapq_from_scores_vec(s1, s2, nh_cands, ranks)
+        if self.record_margins:
+            margin = 1.0 - s2 / np.maximum(s1, 1e-9)
+            qn = [names[flat[i][0]] for i in kept]
+            for t in np.nonzero(ranks == 0)[0]:
+                self._mapq_margins[qn[t]] = float(margin[t])
         strand = cand_strand.astype(np.int8)[kept]
         flag = (np.where(strand == 1, FREVERSE, 0) |
                 np.where(ranks > 0, FSECONDARY, 0)).astype(np.int32)

@@ -50,6 +50,16 @@ def device_detail(dev) -> dict:
             "card": card_line()}
 
 
+def host_detail() -> dict:
+    """What a host-only entry point's line names its machine by: the
+    host's core count and `card_line()` (None where nvidia-smi is
+    missing)."""
+    import os
+    import shutil
+    return {"platform": "cpu", "cores": os.cpu_count(),
+            "card": card_line() if shutil.which("nvidia-smi") else None}
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device milliseconds of fn() over reps back-to-back calls."""
     import torch

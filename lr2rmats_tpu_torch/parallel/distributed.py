@@ -34,6 +34,14 @@ def backend() -> str:
     return "cpu:gloo,cuda:nccl" if dist.is_nccl_available() else "gloo"
 
 
+def free_port() -> int:
+    """A TCP port on localhost that is free now, for a coordinator."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def init_multihost(coordinator: str, num_processes: int,
                    process_id: int) -> None:
     """Join the process group whose rendezvous is `coordinator`

@@ -528,6 +528,9 @@ def run_pipeline(cfg: PipelineConfig,
         filter_pool.shutdown(wait=True)
         log("pipeline", "process %d/%d: kernel launches %s", pid, nproc,
             json.dumps(_build.LAUNCHES, sort_keys=True))
+        if device.type == "cuda":
+            log("pipeline", "process %d/%d: peak card memory %.1f MB", pid,
+                nproc, torch.cuda.max_memory_allocated(device) / 2**20)
 
         # ---- cross-process gather: every process contributes its samples'
         # pass-2 GTFs (the reference's shared-filesystem `cat`); process 0

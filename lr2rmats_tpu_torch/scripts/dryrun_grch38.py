@@ -331,18 +331,12 @@ def shard_worker(pid: int, nproc: int, coord: str, device) -> dict:
     return out
 
 
-def _free_port() -> int:
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def run_sharded(n_shards: int, device="cuda") -> dict:
     """Start the sharded arm's processes, wait for all, merge their
     lines; raises GuardError when one fails."""
     from ..diag.measure import GuardError
-    coord = f"127.0.0.1:{_free_port()}"
+    from ..parallel.distributed import free_port
+    coord = f"127.0.0.1:{free_port()}"
     repo = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     path = os.environ.get("PYTHONPATH")

@@ -43,7 +43,10 @@ SWEEP_ENV = {"SWEEP_READS": "300", "SWEEP_GENOME_MB": "2"}
 ENTRY_POINTS = ("lr2rmats_tpu_torch.bench",
                 "lr2rmats_tpu_torch.scripts.ont_accuracy_sweep",
                 "lr2rmats_tpu_torch.scripts.bench_sjcount",
-                "lr2rmats_tpu_torch.scripts.dryrun_grch38")
+                "lr2rmats_tpu_torch.scripts.dryrun_grch38",
+                "lr2rmats_tpu_torch.scripts.calibrate_mapq",
+                "lr2rmats_tpu_torch.scripts.analyze_ont_failures",
+                "lr2rmats_tpu_torch.scripts.bench_scaling_throughput")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -54,9 +57,9 @@ def both_native_libraries():
         yield
 
 
-def _load_reference_script(name):
+def _load_reference_script(name, path=None):
     spec = importlib.util.spec_from_file_location(
-        f"reference_{name}", REPO / "scripts" / f"{name}.py")
+        f"reference_{name}", path or REPO / "scripts" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
