@@ -32,6 +32,13 @@ exits non-zero):
   5. slice 2: the same with the device junction DP and the device seed
      lookup (junction_backend="device", seed_lookup=True); SAM identical
      to the host backend;
+  5b. workers: slices 1 and 2 again with LR2RMATS_SEED_WORKERS=2 and
+     LR2RMATS_BUILD_WORKERS=2, slice 2 through LR2RMATS_DEVICE_JUNCTIONS=1
+     and LR2RMATS_DEVICE_SEED=1 (the device junction backend keeps one
+     build worker); each SAM identical to its one-worker run and to the
+     host backend, and the aligner's own counts (chain, junction and
+     shift-DP launches, seed lookup calls, junction gaps) equal to its
+     one-worker run's;
   6. pipeline: the scripts/simulate.py dataset at its defaults (synth.py:
      12 Mb genome, 200 genes, 20000 long reads, 50000 short pairs, seed
      7), then `python -m lr2rmats_tpu_torch run` (its main, in this
@@ -150,6 +157,12 @@ ENTRY_DRYRUN = (3, 4.0, 2000)                    # chromosomes, Mb, reads
 ENTRY_CALIBRATE_READS = 1000
 ENTRY_ANALYZE_READS = 1536
 ENTRY_SCALING_PROCS = (1, 2)
+# phase 5b: the seed and build pools the slices run with
+WORKERS = {"LR2RMATS_SEED_WORKERS": "2", "LR2RMATS_BUILD_WORKERS": "2"}
+# the aligner's own counts that must not move with the pools
+WORKER_COUNTS = ("chain_kernel_launches", "junction_kernel_launches",
+                 "shift_dp_kernel_launches", "seed_lookup_calls",
+                 "junction_calls", "junction_gaps", "junction_found")
 GROUP_TIMEOUT_S = 300
 # the bound of a kernel: the larger of the bytes it must move over the
 # H100's HBM rate and the operations its inputs need over the float32 rate
@@ -659,6 +672,71 @@ def align_slice(tag, aligner, seqset, sam_ref, dev):
                              "backend: " + first_diff(p["sam"], sam_ref))
     return (p["rb"], p["sam"], p["wall_s"], p["launches"], p["kernel_ms"],
             p["stats"], p["peak_device_mb"])
+
+
+def run_workers_phase(genome, index, seqset, names, reads, sam_ref, one,
+                      dev, card):
+    """5b: slices 1 and 2 again with two seed and two build workers
+    (WORKERS), slice 2 through the switches in the environment; `one`
+    maps "off" / "on" to the one-worker run's (sam, stats, wall).  Each
+    SAM must equal the one-worker run's and the host backend's, and the
+    aligner's own counts (WORKER_COUNTS) the one-worker run's.  Returns
+    the launch counts of both runs."""
+    from lr2rmats_tpu_torch.align.batch import TorchBatchAligner
+    saved = {v: os.environ.get(v) for v in (*WORKERS, *SWITCHES)}
+    out, launches = {}, []
+    try:
+        for arm in ("off", "on"):
+            for v in SWITCHES:
+                os.environ.pop(v, None)
+            os.environ.update(WORKERS)
+            if arm == "on":
+                os.environ.update({v: "1" for v in SWITCHES[:2]})
+            al = TorchBatchAligner(genome, index=index, device="cuda")
+            if (al.junction_backend == "device") != (arm == "on") or \
+                    (al._seed_lookup is not None) != (arm == "on"):
+                raise AssertionError(f"workers {arm}: the switches did not "
+                                     "select the aligner's device paths")
+            al.warmup_chain_shapes()
+            al.align_batch(names[:64], reads[:64])
+            _, sam, wall, la, _, st, _ = align_slice(
+                f"workers {arm}", al, seqset, sam_ref, dev)
+            sam1, st1, wall1 = one[arm]
+            if sam != sam1:
+                raise AssertionError(f"workers {arm}: SAM differs from the "
+                                     "one-worker run")
+            diff = {k: (st.get(k, 0), st1.get(k, 0)) for k in WORKER_COUNTS
+                    if st.get(k, 0) != st1.get(k, 0)}
+            if diff:
+                raise AssertionError(f"workers {arm}: counts (workers, one "
+                                     f"worker) differ: {diff}")
+            launches.append(la)
+            out[arm] = {
+                "wall_s": wall, "one_worker_wall_s": wall1,
+                "reads_per_s": len(reads) / wall,
+                "host_phases_s": {k[:-2]: st.get(k, 0.0) for k in
+                                  ("seed_s", "dispatch_s", "build_s",
+                                   "polish_s")},
+                "one_worker_host_phases_s": {
+                    k[:-2]: st1.get(k, 0.0) for k in
+                    ("seed_s", "dispatch_s", "build_s", "polish_s")},
+                **{k: st.get(k, 0) for k in WORKER_COUNTS}}
+            al.close()
+    finally:
+        for v, val in saved.items():
+            if val is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = val
+    say("workers", json.dumps({"reads": len(reads), "env": WORKERS,
+                               "sam_identical_to_one_worker_and_host_"
+                               "backend": True, "arms": out, "card": card}))
+    say("workers", "switches off and on: SAM and the aligner's counts equal "
+        f"the one-worker runs with {WORKERS}; walls "
+        f"{out['off']['wall_s']:.2f} / {out['on']['wall_s']:.2f} s against "
+        f"{out['off']['one_worker_wall_s']:.2f} / "
+        f"{out['on']['one_worker_wall_s']:.2f} s with one worker each")
+    return launches
 
 
 def pipeline_outputs(out):
@@ -1454,6 +1532,13 @@ def main(argv=None) -> int:
         f"device seed lookup ({st2['seed_lookup_calls']} calls); SAM "
         f"identical to the host backend; phase wall "
         f"{time.perf_counter() - t_phase:.1f} s")
+
+    # 5b. slices 1 and 2 with two seed and two build workers
+    t_phase = time.perf_counter()
+    path_launches.extend(run_workers_phase(
+        genome, aligner.index, seqset, names, reads, sam_ref,
+        {"off": (sam, st, wall), "on": (sam2, st2, wall2)}, dev, card))
+    say("workers", f"phase wall {time.perf_counter() - t_phase:.1f} s")
 
     # 6. pipeline
     t_phase = time.perf_counter()

@@ -37,7 +37,11 @@ PROG = "lr2rmats_tpu"
 def _tune_allocator() -> None:
     """Keep freed large buffers in the process heap: raise glibc's mmap and
     trim thresholds so that big numpy allocations are served from the
-    retained heap instead of fresh (first-touch faulted) pages each batch."""
+    retained heap instead of fresh (first-touch faulted) pages each batch.
+    Opt out with LR2RMATS_NO_MALLOPT=1."""
+    import os
+    if os.environ.get("LR2RMATS_NO_MALLOPT"):
+        return
     try:
         import ctypes
         libc = ctypes.CDLL("libc.so.6")

@@ -174,7 +174,9 @@ def _pack_rows(rows: List[_Row], part, A: int, B: int):
 
 
 def _chain_launches() -> int:
-    return _build.LAUNCHES["chain_dp_backtrack"] + _build.LAUNCHES["chain_dp"]
+    """The calling thread's chain kernel launches so far."""
+    return (_build.thread_launches("chain_dp_backtrack") +
+            _build.thread_launches("chain_dp"))
 
 
 def _decode(out, part, nn, A, mask, ps, ss) -> None:
@@ -210,6 +212,9 @@ class BatchAligner:
         self.junction_backend = "host"
         self._seed_lookup = None
         self.stats = self.fresh_stats()
+        # the seed and build workers and the main thread add to one stats
+        # dict (`_add_stats`)
+        self._stats_lock = threading.Lock()
         self.n_threads = max(1, n_threads if n_threads is not None
                              else default_threads())
         self._pool = None
@@ -237,6 +242,13 @@ class BatchAligner:
     def fresh_stats() -> Dict[str, float]:
         return {"device_wall_s": 0.0, "anchors": 0, "device_calls": 0,
                 "seed_lookup_calls": 0}
+
+    def _add_stats(self, **inc) -> None:
+        """stats[k] += v for each keyword, under the stats lock."""
+        with self._stats_lock:
+            st = self.stats
+            for k, v in inc.items():
+                st[k] = st.get(k, 0) + v
 
     # -------------------------------------------------------------- seeding
     def _batch_minimizers(self, reads: List[np.ndarray]):
@@ -298,11 +310,11 @@ class BatchAligner:
         look = getattr(idx, "lookup_collective", None)
         if look is None and self._seed_lookup is not None:
             tw = self._seed_lookup
-            w0, c0 = tw.wall_s, tw.calls
+            c0, w0 = tw.thread_counts()
             lo, hi = tw.lookup(h)
-            self.stats["device_wall_s"] += tw.wall_s - w0
-            self.stats["device_calls"] += tw.calls - c0
-            self.stats["seed_lookup_calls"] += tw.calls - c0
+            c1, w1 = tw.thread_counts()
+            self._add_stats(device_wall_s=w1 - w0, device_calls=c1 - c0,
+                            seed_lookup_calls=c1 - c0)
         else:
             lo, hi = (look or idx.lookup)(h)
         cnt = (hi - lo).astype(np.int64)
@@ -983,13 +995,16 @@ class BatchAligner:
                             polish: Optional[bool] = None) -> RecordBatch:
         """Whole-seqset alignment as one packed RecordBatch.
 
-        A seed worker seeds batch N+1 (and packs its chain chunks) while
-        the main thread launches batch N's chain kernels; a build worker
-        extends and assembles batch N while the main thread waits on
-        batch N+1's chains.  Up to `pipeline_depth` launched batches stay
-        in flight.  Then the junction polish (default on; env
-        LR2RMATS_NO_POLISH=1 turns it off) runs over the whole batch
-        (`_polish`: the host DP here, the card's in TorchBatchAligner).
+        Seed workers seed the next batches (and pack their chain chunks)
+        while the main thread launches batch N's chain kernels; build
+        workers extend and assemble the launched batches while the main
+        thread waits on the next batch's chains.  Up to `pipeline_depth`
+        launched batches stay in flight.  LR2RMATS_SEED_WORKERS and
+        LR2RMATS_BUILD_WORKERS (default 1 each) size the two pools; the
+        batches keep their order whatever order the workers finish in.
+        Then the junction polish (default on; env LR2RMATS_NO_POLISH=1
+        turns it off) runs over the whole batch (`_polish`: the host DP
+        here, the card's in TorchBatchAligner).
 
         The reference's weather router, device-failure fallbacks and
         auto-batch doubling guarded a remote TPU link and are left out."""
@@ -1019,10 +1034,27 @@ class BatchAligner:
                  for off in range(0, reads.n, batch_size)]
         inflight = deque()
         build_futs = []
-        with ThreadPoolExecutor(1) as seed_pool, \
-                ThreadPoolExecutor(1) as build_pool:
-            seed_futs = deque([seed_pool.submit(_seed, *spans[0])]
-                              if spans else [])
+        n_build = int(os.environ.get("LR2RMATS_BUILD_WORKERS", "1"))
+        # the device junction build makes card calls on its build worker;
+        # it keeps to one worker, as the reference's does (the "pallas"
+        # backend and the host aligner take any number)
+        device_junc = (self.backend not in ("host", "pallas") and
+                       self.junction_backend == "device")
+        if n_build > 1 and device_junc:
+            log("align", "LR2RMATS_BUILD_WORKERS>1 ignored: "
+                "the device junction backend builds on one worker")
+            n_build = 1
+        # extra seed workers are safe (the seed work is batch-local, the
+        # index is read-only, and the seed_futs deque keeps batch order),
+        # but where the native kernels already use every core they can
+        # lose: the reference measured seeding and the device wait both
+        # slower with 2 seed workers on a 4-core host.  Default 1; raise
+        # LR2RMATS_SEED_WORKERS on hosts with spare cores.
+        n_seed = max(int(os.environ.get("LR2RMATS_SEED_WORKERS", "1")), 1)
+        with ThreadPoolExecutor(n_seed) as seed_pool, \
+                ThreadPoolExecutor(max(n_build, 1)) as build_pool:
+            seed_futs = deque(seed_pool.submit(_seed, *spans[i])
+                              for i in range(min(n_seed, len(spans))))
 
             def _finish_one():
                 names, codes, rows, pending = inflight.popleft()
@@ -1033,8 +1065,9 @@ class BatchAligner:
             for si in range(len(spans)):
                 names, codes, rows, prep, seed_s = seed_futs.popleft().result()
                 st["seed_s"] = st.get("seed_s", 0.0) + seed_s
-                if si + 1 < len(spans):
-                    seed_futs.append(seed_pool.submit(_seed, *spans[si + 1]))
+                nxt = si + len(seed_futs) + 1
+                if nxt < len(spans):
+                    seed_futs.append(seed_pool.submit(_seed, *spans[nxt]))
                 t1 = time.perf_counter()
                 pending = self._chain_rows_async(rows, prep)
                 st["dispatch_s"] = (st.get("dispatch_s", 0.0) +
@@ -1218,13 +1251,12 @@ class TorchBatchAligner(BatchAligner):
             res = launch_rows(chain_dp_backtrack, (qp, gp, nn), self.devices,
                               FUSED_MIN_ROWS, kp, self.p.min_score)
             pending.append(("device", part, nn, A, res))
-            self.stats["device_calls"] += 1
         for off, qp, gp, nn in prep["dp"]:
             res = launch_rows(chain_dp, (qp, gp, nn), self.devices,
                               DP_MIN_ROWS, kp)
             pending.append(("dp", off, nn, res))
-            self.stats["device_calls"] += 1
-        self.stats["chain_kernel_launches"] += _chain_launches() - n0
+        self._add_stats(device_calls=len(prep["chunks"]) + len(prep["dp"]),
+                        chain_kernel_launches=_chain_launches() - n0)
         if prep["host_rows"]:
             pending.append(("hostrows", prep["host_rows"]))
         return pending
@@ -1239,15 +1271,15 @@ class TorchBatchAligner(BatchAligner):
                     r = rows[i]
                     f, parent = chain_anchors(r.qpos, r.gpos, self.p.chain)
                     out[i] = backtrack(f, parent, self.p.min_score)
-                self.stats["anchors"] += sum(len(rows[i].qpos)
-                                             for i in entry[1])
+                self._add_stats(anchors=sum(len(rows[i].qpos)
+                                            for i in entry[1]))
                 continue
             if kind == "dp":
                 _, off, nn, res = entry
                 t0 = time.perf_counter()
                 f, parent = gather_rows(res)
-                self.stats["device_wall_s"] += time.perf_counter() - t0
-                self.stats["anchors"] += int(np.sum(nn))
+                self._add_stats(device_wall_s=time.perf_counter() - t0,
+                                anchors=int(np.sum(nn)))
                 for bi, n in enumerate(nn.tolist()):
                     out[off + bi] = backtrack(
                         f[bi, :n].astype(np.float64),
@@ -1257,8 +1289,8 @@ class TorchBatchAligner(BatchAligner):
             if kind == "device":
                 t0 = time.perf_counter()
                 res = gather_rows(res)
-                self.stats["device_wall_s"] += time.perf_counter() - t0
-            self.stats["anchors"] += int(np.sum(nn))
+                self._add_stats(device_wall_s=time.perf_counter() - t0)
+            self._add_stats(anchors=int(np.sum(nn)))
             _decode(out, part, nn, A, *res)
         return out
 
@@ -1334,16 +1366,17 @@ class TorchBatchAligner(BatchAligner):
         dev_ln = np.zeros(n_out, np.int32)
         dev_rn = np.zeros(n_out, np.int32)
         if n_dev:
-            st = self.stats
-            n0 = dict(_build.LAUNCHES)
+            # this thread's launches: several build workers (backend
+            # "pallas") can launch the junction kernel at once
+            n0 = _build.thread_launches("junction")
             batch = prepare_junction_batch(ref, gaps, B)
             score, bj, bcl, bcr, vote, found = junction_batch(
                 batch, p.min_intron_len, self.device)
-            st["junction_calls"] += 1
-            st["junction_gaps"] += n_dev
-            st["junction_found"] += int(found.sum())
-            st["junction_kernel_launches"] += (_build.LAUNCHES["junction"] -
-                                               n0["junction"])
+            self._add_stats(
+                junction_calls=1, junction_gaps=n_dev,
+                junction_found=int(found.sum()),
+                junction_kernel_launches=(_build.thread_launches("junction")
+                                          - n0))
             dev_found[:n_dev] = found
             dev_vote[:n_dev] = vote
             dev_ilen[:n_dev] = (batch["span"] - batch["m"] + 2 * B -
@@ -1427,11 +1460,11 @@ class TorchBatchAligner(BatchAligner):
     def _polish(self, rb: RecordBatch) -> int:
         """The junction consensus polish with its placement DP on
         `device`, counting the shift-DP launches."""
-        n0 = _build.LAUNCHES["shift_dp"]
+        n0 = _build.thread_launches("shift_dp")
         n = polish_batch(rb, self.inner.genome.codes,
                          self.index.chrom_offsets, self.device)
-        self.stats["shift_dp_kernel_launches"] += (_build.LAUNCHES["shift_dp"]
-                                                   - n0)
+        self._add_stats(shift_dp_kernel_launches=(
+            _build.thread_launches("shift_dp") - n0))
         return n
 
 

@@ -11,6 +11,7 @@ kernel, so the torch op is its counterpart.  (lo, hi) equal
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Tuple
 
@@ -28,7 +29,9 @@ def _next_pow2(n: int, floor: int = 4096) -> int:
 
 class TorchSeedLookup:
     """searchsorted (lo, hi) ranges against a device-resident hash table;
-    drop-in for `MinimizerIndex.lookup`.  Counts its calls and wall."""
+    drop-in for `MinimizerIndex.lookup`.  Counts its calls and wall, in
+    all and for each calling thread (`thread_counts`), so that seed
+    workers looking up at once each read their own."""
 
     @staticmethod
     def supports(index) -> bool:
@@ -51,6 +54,14 @@ class TorchSeedLookup:
             index.hashes.astype(np.int32)).to(self.device)
         self.calls = 0
         self.wall_s = 0.0
+        self._lock = threading.Lock()
+        self._thread = threading.local()
+
+    def thread_counts(self) -> Tuple[int, float]:
+        """(calls, wall seconds) of the lookups the calling thread made so
+        far (never reset)."""
+        mine = self._thread
+        return getattr(mine, "calls", 0), getattr(mine, "wall_s", 0.0)
 
     def lookup(self, qhashes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """(lo, hi) int64 per query hash."""
@@ -68,6 +79,11 @@ class TorchSeedLookup:
             torch.searchsorted(self.table, tq, out_int32=True),
             torch.searchsorted(self.table, tq, right=True, out_int32=True),
         ]).cpu().numpy()
-        self.calls += 1
-        self.wall_s += time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        mine = self._thread
+        mine.calls = getattr(mine, "calls", 0) + 1
+        mine.wall_s = getattr(mine, "wall_s", 0.0) + wall
+        with self._lock:
+            self.calls += 1
+            self.wall_s += wall
         return (out[0, :nq].astype(np.int64), out[1, :nq].astype(np.int64))

@@ -13,7 +13,11 @@ returned `cudaGetLastError()` code (a refused launch never runs, and a
 later synchronize would not report it), adds one to `LAUNCHES[name]` and
 to `CARD_LAUNCHES[card index]`, and closes the CUDA event pair opened by
 `start_event(device)` on the launching card while a `timing()` block is
-active.  Nothing else touches the counts.
+active.  Nothing else touches the counts.  Kernels launch from several
+threads (the aligner's main thread and its seed and build workers), so
+the shared counts are updated under a lock of their own, and each thread
+also keeps its own (`thread_launches`): a caller's delta of those around
+its own calls counts its launches alone, whatever other threads launch.
 """
 
 from __future__ import annotations
@@ -47,6 +51,9 @@ LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 CARD_LAUNCHES: Dict[int, int] = {}
 
 _lock = threading.Lock()
+# LAUNCHES and CARD_LAUNCHES; not _lock, which load() holds while it builds
+_count_lock = threading.Lock()
+_thread = threading.local()
 _lib: Optional[ctypes.CDLL] = None
 # filled by the first successful load(): wall seconds of the nvcc build (0.0
 # when the library was already built) and nvcc's -Xptxas -v report
@@ -194,20 +201,33 @@ def launched(name: str, rc: int, start, device) -> None:
         msg = _lib.lr2_cuda_error_string(rc).decode() if _lib else "?"
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"error {rc} ({msg})")
-    LAUNCHES[name] += 1
+    mine = getattr(_thread, "launches", None)
+    if mine is None:
+        mine = _thread.launches = dict.fromkeys(KERNELS, 0)
+    mine[name] += 1
     card = device.index if device.index is not None else 0
-    CARD_LAUNCHES[card] = CARD_LAUNCHES.get(card, 0) + 1
-    if start is not None and _events is not None:
+    with _count_lock:
+        LAUNCHES[name] += 1
+        CARD_LAUNCHES[card] = CARD_LAUNCHES.get(card, 0) + 1
+    events = _events
+    if start is not None and events is not None:
         import torch
         end = torch.cuda.Event(enable_timing=True)
         end.record(torch.cuda.current_stream(device))
-        _events.append((name, device, start, end))
+        events.append((name, device, start, end))
+
+
+def thread_launches(name: str) -> int:
+    """Launches of kernel `name` made by the calling thread so far (never
+    reset)."""
+    return getattr(_thread, "launches", {}).get(name, 0)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    CARD_LAUNCHES.clear()
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        CARD_LAUNCHES.clear()
 
 
 @contextlib.contextmanager
