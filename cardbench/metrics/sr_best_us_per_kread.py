@@ -1,0 +1,9 @@
+"""Seconds of the program's `lr2rmats.sr.best` spans over the traced
+window: `_place_batched`'s grouping by read and best marking, both
+mates; in microseconds a thousand short reads."""
+
+from cardbench.program_spans import per_item
+
+
+def read(rec):
+    return per_item(rec, "lr2rmats.sr.best", "short_reads", 1e9)

@@ -78,6 +78,7 @@ from ..ops.junction import (B_DEF as JUNCTION_BAND, MGAP, cell_ops,
                             prepare_junction_batch)
 from ..ops.splice import shift_dp
 from ..utils import default_threads, log
+from ..utils.log import count, current_call, span
 from .aligner import AlignParams, SpliceAligner
 from .chain import ChainParams, backtrack, chain_anchors
 from .mapq import MAPQ_UNIQUE, mapq_from_scores, mapq_from_scores_vec
@@ -963,14 +964,10 @@ class BatchAligner:
     def dispatch_batch(self, names: Sequence[str], reads: List[np.ndarray]):
         """Phase 1: seeding + async chain dispatch; returns a handle (the
         lockstep driver of a multi-process sharded index)."""
-        t0 = time.perf_counter()
-        rows = self._batch_anchors(reads)
-        t1 = time.perf_counter()
-        pending = self._chain_rows_async(rows)
-        t2 = time.perf_counter()
-        st = self.stats
-        st["seed_s"] = st.get("seed_s", 0.0) + (t1 - t0)
-        st["dispatch_s"] = st.get("dispatch_s", 0.0) + (t2 - t1)
+        with span("lr2rmats.align.seed", self, "seed_s"):
+            rows = self._batch_anchors(reads)
+        with span("lr2rmats.align.dispatch", self, "dispatch_s"):
+            pending = self._chain_rows_async(rows)
         return (names, reads, rows, pending)
 
     def finish_batch(self, handle) -> List[AlnRec]:
@@ -980,14 +977,11 @@ class BatchAligner:
         return self._build_records(names, reads, rows, chained)
 
     def finish_batch_packed(self, handle):
-        import time as _time
         names, reads, rows, pending = handle
-        chained = self._materialize_chains(rows, pending)
-        t0 = _time.perf_counter()
-        out = self._build_packed(names, reads, rows, chained)
-        self.stats["build_s"] = (self.stats.get("build_s", 0.0) +
-                                 _time.perf_counter() - t0)
-        return out
+        with span("lr2rmats.align.chain_wait"):
+            chained = self._materialize_chains(rows, pending)
+        with span("lr2rmats.align.build", self, "build_s"):
+            return self._build_packed(names, reads, rows, chained)
 
     def align_seqset_packed(self, reads: SeqSet,
                             batch_size: int = DEFAULT_BATCH,
@@ -1015,23 +1009,36 @@ class BatchAligner:
                 "align_seqset_packed cannot drive a local_only "
                 "(multi-process) sharded index: the seed-ahead worker "
                 "would race its collective lookup")
-        st = self.stats
+        with span("lr2rmats.align.call"):
+            return self._align_packed(reads, batch_size, pipeline_depth,
+                                      polish)
+
+    def _align_packed(self, reads: SeqSet, batch_size: int,
+                      pipeline_depth: int, polish: bool) -> RecordBatch:
+        """The body of `align_seqset_packed`, inside its call span.  Each
+        layer boundary is a span (utils/log.py): the workers' seed,
+        prepare and build; the main thread's seed_wait, dispatch,
+        chain_wait, build_wait and polish.  The worker spans add to
+        stats seed_s (seed and prepare) and build_s, the main thread's to
+        dispatch_s and polish_s."""
+        cid = current_call()
 
         def _seed(lo: int, hi: int):
             names = [reads.names[i] for i in range(lo, hi)]
             codes = [reads.get(i) for i in range(lo, hi)]
-            t0 = time.perf_counter()
-            rows = self._batch_anchors(codes)
-            prep = self._prepare_dispatch(rows)
-            return names, codes, rows, prep, time.perf_counter() - t0
+            with span("lr2rmats.align.seed", self, "seed_s", call=cid):
+                rows = self._batch_anchors(codes)
+            with span("lr2rmats.align.prepare", self, "seed_s", call=cid):
+                prep = self._prepare_dispatch(rows)
+            return names, codes, rows, prep
 
         def _build_one(names, codes, rows, chained):
-            t0 = time.perf_counter()
-            out = self._build_packed(names, codes, rows, chained)
-            return out, time.perf_counter() - t0
+            with span("lr2rmats.align.build", self, "build_s", call=cid):
+                return self._build_packed(names, codes, rows, chained)
 
         spans = [(off, min(off + batch_size, reads.n))
                  for off in range(0, reads.n, batch_size)]
+        count("lr2rmats.align.batches", len(spans))
         inflight = deque()
         build_futs = []
         n_build = int(os.environ.get("LR2RMATS_BUILD_WORKERS", "1"))
@@ -1058,37 +1065,30 @@ class BatchAligner:
 
             def _finish_one():
                 names, codes, rows, pending = inflight.popleft()
-                chained = self._materialize_chains(rows, pending)
+                with span("lr2rmats.align.chain_wait"):
+                    chained = self._materialize_chains(rows, pending)
                 build_futs.append(build_pool.submit(
                     _build_one, names, codes, rows, chained))
 
             for si in range(len(spans)):
-                names, codes, rows, prep, seed_s = seed_futs.popleft().result()
-                st["seed_s"] = st.get("seed_s", 0.0) + seed_s
+                with span("lr2rmats.align.seed_wait"):
+                    names, codes, rows, prep = seed_futs.popleft().result()
                 nxt = si + len(seed_futs) + 1
                 if nxt < len(spans):
                     seed_futs.append(seed_pool.submit(_seed, *spans[nxt]))
-                t1 = time.perf_counter()
-                pending = self._chain_rows_async(rows, prep)
-                st["dispatch_s"] = (st.get("dispatch_s", 0.0) +
-                                    time.perf_counter() - t1)
+                with span("lr2rmats.align.dispatch", self, "dispatch_s"):
+                    pending = self._chain_rows_async(rows, prep)
                 inflight.append((names, codes, rows, pending))
                 if len(inflight) > pipeline_depth:
                     _finish_one()
             while inflight:
                 _finish_one()
-            chunks = []
-            for fut in build_futs:
-                rb_i, build_s = fut.result()
-                st["build_s"] = st.get("build_s", 0.0) + build_s
-                chunks.append(rb_i)
-        rb = RecordBatch.concat(chunks) if chunks else \
-            RecordBatch.from_alnrecs([])
+            # the wait on the build workers and the join of their batches
+            with span("lr2rmats.align.build_wait"):
+                rb = RecordBatch.concat([fut.result() for fut in build_futs])
         if polish:
-            t0 = time.perf_counter()
-            n = self._polish(rb)
-            st["polish_s"] = (st.get("polish_s", 0.0) +
-                              time.perf_counter() - t0)
+            with span("lr2rmats.align.polish", self, "polish_s"):
+                n = self._polish(rb)
             if n:
                 log("align", "junction consensus polish: %d re-placed", n)
         return rb

@@ -39,6 +39,7 @@ from ..io.fasta import Genome, SeqSet, revcomp
 from ..io.sj import SJTable
 from ..transcript.model import Transcripts
 from ..utils import log
+from ..utils.log import count, span
 from .bam2sj import intron_motif_of
 
 # peak combos materialized at once by count_pairs_batched's mate
@@ -444,8 +445,16 @@ class JunctionCounter:
         FPROPER_PAIR alignments): a junction crossing counts only when its
         placement participates in a concordant pair — mates on opposite
         strands of the same chromosome within max_mates_gap.  Discordant
-        pairs contribute nothing (tests/test_sjcount.py)."""
+        pairs contribute nothing (tests/test_sjcount.py).
+
+        Spans (utils/log.py): the batch is one call, `_place_batched`'s
+        seed, verify and best phases run for each mate, then the pairing
+        and the counting."""
         assert reads1.n == reads2.n, "mate files differ in read count"
+        with span("lr2rmats.sr.call"):
+            self._count_pairs(reads1, reads2)
+
+    def _count_pairs(self, reads1: SeqSet, reads2: SeqSet) -> None:
         p = self.p
         R = reads1.n
         if R == 0:
@@ -453,237 +462,247 @@ class JunctionCounter:
         placed = [self._place_batched(rs) for rs in (reads1, reads2)]
         if placed[0] is None or placed[1] is None:
             return
-        goffs = self.genome.offsets
-        jglobal = goffs[self.jtid] + self.jdon     # junction anchor, global
+        with span("lr2rmats.sr.pair"):
+            goffs = self.genome.offsets
+            # junction anchor, global
+            jglobal = goffs[self.jtid] + self.jdon
 
-        def best_arrays(P):
-            (ri, cp, ori, L, c0, in_genome, mm, grp_start, is_best,
-             lpart, rpart) = P
-            sel = is_best
-            ri, cp, ori, c0, in_genome, lp, rp = (
-                ri[sel], cp[sel], ori[sel], c0[sel], in_genome[sel],
-                lpart[sel], rpart[sel])
-            # global genomic anchor + chromosome for concordance checks
-            tid = np.where(
-                in_genome,
-                np.clip(np.searchsorted(goffs, cp, side="right") - 1, 0,
-                        len(goffs) - 2),
-                self.jtid[np.clip(c0, 0, max(len(self.jtid) - 1, 0))])
-            anchor = np.where(in_genome, cp,
-                              jglobal[np.clip(c0, 0,
-                                              max(len(self.jtid) - 1, 0))])
-            crossing = (~in_genome) & (lp >= p.min_overhang) & \
-                (rp >= p.min_overhang)
-            over = np.minimum(lp, rp).astype(np.int32)
-            # per-read offsets over 0..R-1
-            counts = np.bincount(ri, minlength=R)
-            offs = np.zeros(R + 1, np.int64)
-            np.cumsum(counts, out=offs[1:])
-            order = np.argsort(ri, kind="stable")
-            return (ri[order], ori[order], tid[order], anchor[order],
-                    crossing[order], c0[order], over[order],
-                    in_genome[order], offs)
+            def best_arrays(P):
+                (ri, cp, ori, L, c0, in_genome, mm, grp_start, is_best,
+                 lpart, rpart) = P
+                sel = is_best
+                ri, cp, ori, c0, in_genome, lp, rp = (
+                    ri[sel], cp[sel], ori[sel], c0[sel], in_genome[sel],
+                    lpart[sel], rpart[sel])
+                # global genomic anchor + chromosome for concordance checks
+                tid = np.where(
+                    in_genome,
+                    np.clip(np.searchsorted(goffs, cp, side="right") - 1, 0,
+                            len(goffs) - 2),
+                    self.jtid[np.clip(c0, 0, max(len(self.jtid) - 1, 0))])
+                anchor = np.where(in_genome, cp,
+                                  jglobal[np.clip(c0, 0,
+                                                  max(len(self.jtid) - 1, 0))])
+                crossing = (~in_genome) & (lp >= p.min_overhang) & \
+                    (rp >= p.min_overhang)
+                over = np.minimum(lp, rp).astype(np.int32)
+                # per-read offsets over 0..R-1
+                counts = np.bincount(ri, minlength=R)
+                offs = np.zeros(R + 1, np.int64)
+                np.cumsum(counts, out=offs[1:])
+                order = np.argsort(ri, kind="stable")
+                return (ri[order], ori[order], tid[order], anchor[order],
+                        crossing[order], c0[order], over[order],
+                        in_genome[order], offs)
 
-        r1 = best_arrays(placed[0])
-        r2 = best_arrays(placed[1])
-        offs1, offs2 = r1[8], r2[8]
-        n1 = np.diff(offs1)
-        n2 = np.diff(offs2)
-        ncomb = (n1 * n2).astype(np.int64)
-        tot = int(ncomb.sum())
-        if tot == 0:
-            return
-        cstart = np.zeros(R + 1, np.int64)
-        np.cumsum(ncomb, out=cstart[1:])
-        # the placement cross-product is evaluated in bounded chunks of
-        # reads: repeat-heavy pairs can hold 10^2-10^3 tied best
-        # placements per mate, and one dense n1*n2 materialization over a
-        # whole read set would be tens of GB — chunking keeps the peak at
-        # ~_PAIR_COMBO_CHUNK combos with results identical to one pass
-        n_concord = np.zeros(R, np.int64)
-        part1 = np.zeros(len(r1[0]), bool)
-        part2 = np.zeros(len(r2[0]), bool)
-        lo_r = 0
-        while lo_r < R:
-            hi_r = int(np.searchsorted(
-                cstart, cstart[lo_r] + _PAIR_COMBO_CHUNK, side="left"))
-            hi_r = min(max(hi_r, lo_r + 1), R)
-            g0, g1 = int(cstart[lo_r]), int(cstart[hi_r])
-            nt = g1 - g0
-            if nt:
-                pair_of = np.repeat(np.arange(lo_r, hi_r),
-                                    ncomb[lo_r: hi_r])
-                within = np.arange(g0, g1) - cstart[pair_of]
-                i1 = offs1[pair_of] + within // np.maximum(n2[pair_of], 1)
-                i2 = offs2[pair_of] + within % np.maximum(n2[pair_of], 1)
-                concord = ((r1[1][i1] != r2[1][i2]) &
-                           (r1[2][i1] == r2[2][i2]) &
-                           (np.abs(r1[3][i1] - r2[3][i2])
-                            <= p.max_mates_gap))
-                # reduceat needs in-bounds indices; empty pair groups
-                # (ncomb == 0) are clipped then zeroed
-                nc = np.add.reduceat(
-                    concord.astype(np.int64),
-                    np.minimum(cstart[lo_r: hi_r] - g0, nt - 1))
-                nc[ncomb[lo_r: hi_r] == 0] = 0
-                n_concord[lo_r: hi_r] = nc
-                # placements participating in >= 1 concordant combo
-                np.logical_or.at(part1, i1, concord)
-                np.logical_or.at(part2, i2, concord)
-            lo_r = hi_r
-        uniq_pair = n_concord == 1
-        ok_pair = n_concord >= 1
-        for (ri_m, ori_m, tid_m, anc_m, cross_m, c0_m, over_m, ing_m,
-             offs_m), part in ((r1, part1), (r2, part2)):
-            # per-mate genomic tie: a participating contiguous placement
-            # beats the junction interpretation (single-end tie analog)
-            tie = np.zeros(R, bool)
-            np.logical_or.at(tie, ri_m[part & ing_m], True)
-            sel = part & cross_m & ok_pair[ri_m] & ~tie[ri_m]
-            cc = c0_m[sel]
-            u = uniq_pair[ri_m[sel]]
-            if self._dev_counts is not None:
-                self._dev_counts.add(cc, u, over_m[sel])
-            else:
-                np.add.at(self.uniq_c, cc[u], 1)
-                np.add.at(self.multi_c, cc[~u], 1)
-                np.maximum.at(self.max_over, cc, over_m[sel])
+            r1 = best_arrays(placed[0])
+            r2 = best_arrays(placed[1])
+            offs1, offs2 = r1[8], r2[8]
+            n1 = np.diff(offs1)
+            n2 = np.diff(offs2)
+            ncomb = (n1 * n2).astype(np.int64)
+            tot = int(ncomb.sum())
+            count("lr2rmats.sr.combos", tot)
+            if tot == 0:
+                return
+            cstart = np.zeros(R + 1, np.int64)
+            np.cumsum(ncomb, out=cstart[1:])
+            # the placement cross-product is evaluated in bounded chunks of
+            # reads: repeat-heavy pairs can hold 10^2-10^3 tied best
+            # placements per mate, and one dense n1*n2 materialization over a
+            # whole read set would be tens of GB — chunking keeps the peak at
+            # ~_PAIR_COMBO_CHUNK combos with results identical to one pass
+            n_concord = np.zeros(R, np.int64)
+            part1 = np.zeros(len(r1[0]), bool)
+            part2 = np.zeros(len(r2[0]), bool)
+            lo_r = 0
+            while lo_r < R:
+                hi_r = int(np.searchsorted(
+                    cstart, cstart[lo_r] + _PAIR_COMBO_CHUNK, side="left"))
+                hi_r = min(max(hi_r, lo_r + 1), R)
+                g0, g1 = int(cstart[lo_r]), int(cstart[hi_r])
+                nt = g1 - g0
+                if nt:
+                    pair_of = np.repeat(np.arange(lo_r, hi_r),
+                                        ncomb[lo_r: hi_r])
+                    within = np.arange(g0, g1) - cstart[pair_of]
+                    i1 = offs1[pair_of] + within // np.maximum(n2[pair_of], 1)
+                    i2 = offs2[pair_of] + within % np.maximum(n2[pair_of], 1)
+                    concord = ((r1[1][i1] != r2[1][i2]) &
+                               (r1[2][i1] == r2[2][i2]) &
+                               (np.abs(r1[3][i1] - r2[3][i2])
+                                <= p.max_mates_gap))
+                    # reduceat needs in-bounds indices; empty pair groups
+                    # (ncomb == 0) are clipped then zeroed
+                    nc = np.add.reduceat(
+                        concord.astype(np.int64),
+                        np.minimum(cstart[lo_r: hi_r] - g0, nt - 1))
+                    nc[ncomb[lo_r: hi_r] == 0] = 0
+                    n_concord[lo_r: hi_r] = nc
+                    # placements participating in >= 1 concordant combo
+                    np.logical_or.at(part1, i1, concord)
+                    np.logical_or.at(part2, i2, concord)
+                lo_r = hi_r
+            uniq_pair = n_concord == 1
+            ok_pair = n_concord >= 1
+        with span("lr2rmats.sr.count"):
+            for (ri_m, ori_m, tid_m, anc_m, cross_m, c0_m, over_m, ing_m,
+                 offs_m), part in ((r1, part1), (r2, part2)):
+                # per-mate genomic tie: a participating contiguous placement
+                # beats the junction interpretation (single-end tie analog)
+                tie = np.zeros(R, bool)
+                np.logical_or.at(tie, ri_m[part & ing_m], True)
+                sel = part & cross_m & ok_pair[ri_m] & ~tie[ri_m]
+                cc = c0_m[sel]
+                u = uniq_pair[ri_m[sel]]
+                if self._dev_counts is not None:
+                    self._dev_counts.add(cc, u, over_m[sel])
+                else:
+                    np.add.at(self.uniq_c, cc[u], 1)
+                    np.add.at(self.multi_c, cc[~u], 1)
+                    np.maximum.at(self.max_over, cc, over_m[sel])
 
     def _place_batched(self, reads: SeqSet):
         """Shared batched placement pass: seeds, hits, verification, best
         marking.  Returns per-candidate arrays sorted/grouped by read, or
         None when nothing placed."""
-        from ..native import get_lib
-        lib = get_lib()
-        p = self.p
-        k = p.seed_k
-        R = reads.n
-        if R == 0:
-            return None
-        # forward + reverse-complement concatenated read buffers
-        fwd = reads.codes
-        offs = reads.offsets
-        total = int(offs[-1])
-        from ..io.fasta import revcomp
-        rc_all = revcomp(fwd)  # reverses segment order too
-        # rc read i lives at [total - offs[i+1], total - offs[i])
-        lens = (offs[1:] - offs[:-1]).astype(np.int64)
+        with span("lr2rmats.sr.seed"):
+            from ..native import get_lib
+            lib = get_lib()
+            p = self.p
+            k = p.seed_k
+            R = reads.n
+            if R == 0:
+                return None
+            # forward + reverse-complement concatenated read buffers
+            fwd = reads.codes
+            offs = reads.offsets
+            total = int(offs[-1])
+            from ..io.fasta import revcomp
+            rc_all = revcomp(fwd)  # reverses segment order too
+            # rc read i lives at [total - offs[i+1], total - offs[i])
+            lens = (offs[1:] - offs[:-1]).astype(np.int64)
 
-        # seeds: seeds_per_read positions per read per orientation, k-mers
-        # computed only AT those positions (kmers_at_c)
-        seed_frac = np.linspace(0, 1, p.seeds_per_read)
-        nf = len(seed_frac)
-        cand_read = []
-        cand_pos = []
-        rid_tile = np.tile(np.arange(R, dtype=np.int64), nf)
-        len_ok_tile = np.tile(lens >= k, nf)
-        for codes_all, is_rc in ((fwd, False), (rc_all, True)):
-            base = (total - offs[1:]) if is_rc else offs[:-1]
-            sp = np.concatenate(
-                [base + np.maximum((frac * (lens - k)).astype(np.int64), 0)
-                 for frac in seed_frac])
-            km, okm = self._kmers_at(codes_all, sp)
-            good = okm & len_ok_tile
-            idx = np.nonzero(good)[0]
-            if not len(idx):
-                continue
-            rep, tpos = self._hits(km[idx])
-            if not len(rep):
-                continue
-            seed_in_read = (sp[idx] - base[rid_tile[idx]])[rep]
-            diag = tpos - seed_in_read
-            rr = rid_tile[idx][rep]
-            # encode orientation in read id: rc reads get id + R
-            cand_read.append(rr + (R if is_rc else 0))
-            cand_pos.append(diag)
-        if not cand_read:
-            return
-        if len(self.jtid) == 0:
-            return  # no candidate junctions to count against
-        cr = np.concatenate(cand_read).astype(np.int64)
-        cp = np.concatenate(cand_pos).astype(np.int64)
-        # dedupe (read+orient, diag)
-        order = np.lexsort((cp, cr))
-        cr, cp = cr[order], cp[order]
-        keep = np.ones(len(cr), bool)
-        keep[1:] = (cr[1:] != cr[:-1]) | (cp[1:] != cp[:-1])
-        cr, cp = cr[keep], cp[keep]
-        ori = (cr >= R).astype(np.int8)
-        ri = np.where(ori == 1, cr - R, cr)
-        L = lens[ri]
-        nbuf = len(self.buf)
-        # validity: bounds + segment-respecting
-        valid = (cp >= 0) & (cp + L <= nbuf)
-        in_genome = cp < self.gn
-        valid &= ~(in_genome & (cp + L > self.gn))
-        # genomic placements must stay within one chromosome
-        goffs = self.genome.offsets
-        gt0 = np.searchsorted(goffs, np.clip(cp, 0, None), side="right") - 1
-        gt0 = np.clip(gt0, 0, len(goffs) - 2)
-        valid &= ~(in_genome & (cp + L > goffs[gt0 + 1]))
-        cpos = cp - self.gn
-        c0 = np.searchsorted(self.ctx_offs, np.maximum(cpos, 0),
-                             side="right") - 1
-        c0 = np.clip(c0, 0, max(len(self.ctx_offs) - 2, 0))
-        ctx_ok = in_genome | (cpos + L <= self.ctx_offs[c0 + 1])
-        valid &= ctx_ok
-        cr, cp, ori, ri, L, c0, in_genome = (
-            cr[valid], cp[valid], ori[valid], ri[valid], L[valid],
-            c0[valid], in_genome[valid])
-        if not len(cr):
-            return
-        # Hamming verify: rc candidates compare the rc read buffer
-        mm = np.empty(len(cr), np.int32)
-        if self._dev_verifier is not None or lib is not None:
-            # unified reads buffer: fwd ++ rc; segment R+j is the rc of
-            # read R-1-j, so rc of read i = segment 2R-1-i.  ONE shared
-            # construction — the device and native verifiers must stay
-            # bit-equal, so they must read identical candidate layouts.
-            comb = np.concatenate([fwd, rc_all])
-            comb_off = np.empty(2 * R + 1, np.int64)
-            comb_off[: R + 1] = offs
-            comb_off[R + 1:] = 2 * total - offs[R - 1:: -1].astype(np.int64)
-            # read id for candidate: fwd -> ri, rc -> index of rc segment
-            rc_seg = 2 * R - 1 - ri
-            rid_comb = np.where(ori == 1, rc_seg, ri).astype(np.int32)
-        if self._dev_verifier is not None:
-            mm = self._dev_verifier.verify(comb, comb_off, rid_comb, cp)
-        elif lib is not None:
-            lib.hamming_pairs_c(self.buf, nbuf, comb,
-                                np.ascontiguousarray(comb_off),
-                                np.ascontiguousarray(rid_comb),
-                                np.ascontiguousarray(cp), len(cp), mm)
-        else:
-            for t in range(len(cr)):
-                if ori[t]:
-                    seg = rc_all[total - int(offs[ri[t] + 1]):
-                                 total - int(offs[ri[t]])]
-                else:
-                    seg = fwd[int(offs[ri[t]]): int(offs[ri[t] + 1])]
-                mm[t] = int(np.sum(self.buf[cp[t]: cp[t] + L[t]] != seg))
-        max_mm = (p.max_mm_frac * L).astype(np.int32)
-        okmm = mm <= max_mm
-        cr, cp, ori, ri, L, c0, in_genome, mm = (
-            cr[okmm], cp[okmm], ori[okmm], ri[okmm], L[okmm], c0[okmm],
-            in_genome[okmm], mm[okmm])
-        if not len(cr):
-            return None
-        # group by read (both orientations together)
-        order = np.lexsort((cp, ori, ri))
-        cr, cp, ori, ri, L, c0, in_genome, mm = (
-            x[order] for x in (cr, cp, ori, ri, L, c0, in_genome, mm))
-        grp_start = np.concatenate(
-            [[0], np.nonzero(ri[1:] != ri[:-1])[0] + 1])
-        best_mm = np.minimum.reduceat(mm, grp_start)
-        best_per_cand = np.repeat(best_mm,
-                                  np.diff(np.concatenate([grp_start, [len(ri)]])))
-        is_best = mm == best_per_cand
-        off_in_ctx = cp - self.gn - self.ctx_offs[c0]
-        left = self.ctx_left_len[c0].astype(np.int64)
-        lpart = left - off_in_ctx
-        rpart = off_in_ctx + L - left
-        return (ri, cp, ori, L, c0, in_genome, mm, grp_start, is_best,
-                lpart, rpart)
+            # seeds: seeds_per_read positions per read per orientation, k-mers
+            # computed only AT those positions (kmers_at_c)
+            seed_frac = np.linspace(0, 1, p.seeds_per_read)
+            nf = len(seed_frac)
+            cand_read = []
+            cand_pos = []
+            rid_tile = np.tile(np.arange(R, dtype=np.int64), nf)
+            len_ok_tile = np.tile(lens >= k, nf)
+            for codes_all, is_rc in ((fwd, False), (rc_all, True)):
+                base = (total - offs[1:]) if is_rc else offs[:-1]
+                sp = np.concatenate(
+                    [base + np.maximum((frac * (lens - k)).astype(np.int64), 0)
+                     for frac in seed_frac])
+                km, okm = self._kmers_at(codes_all, sp)
+                good = okm & len_ok_tile
+                idx = np.nonzero(good)[0]
+                if not len(idx):
+                    continue
+                rep, tpos = self._hits(km[idx])
+                if not len(rep):
+                    continue
+                seed_in_read = (sp[idx] - base[rid_tile[idx]])[rep]
+                diag = tpos - seed_in_read
+                rr = rid_tile[idx][rep]
+                # encode orientation in read id: rc reads get id + R
+                cand_read.append(rr + (R if is_rc else 0))
+                cand_pos.append(diag)
+            if not cand_read:
+                return
+            if len(self.jtid) == 0:
+                return  # no candidate junctions to count against
+            cr = np.concatenate(cand_read).astype(np.int64)
+            cp = np.concatenate(cand_pos).astype(np.int64)
+            # dedupe (read+orient, diag)
+            order = np.lexsort((cp, cr))
+            cr, cp = cr[order], cp[order]
+            keep = np.ones(len(cr), bool)
+            keep[1:] = (cr[1:] != cr[:-1]) | (cp[1:] != cp[:-1])
+            cr, cp = cr[keep], cp[keep]
+            ori = (cr >= R).astype(np.int8)
+            ri = np.where(ori == 1, cr - R, cr)
+            L = lens[ri]
+            nbuf = len(self.buf)
+            # validity: bounds + segment-respecting
+            valid = (cp >= 0) & (cp + L <= nbuf)
+            in_genome = cp < self.gn
+            valid &= ~(in_genome & (cp + L > self.gn))
+            # genomic placements must stay within one chromosome
+            goffs = self.genome.offsets
+            gt0 = np.searchsorted(goffs, np.clip(cp, 0, None),
+                                  side="right") - 1
+            gt0 = np.clip(gt0, 0, len(goffs) - 2)
+            valid &= ~(in_genome & (cp + L > goffs[gt0 + 1]))
+            cpos = cp - self.gn
+            c0 = np.searchsorted(self.ctx_offs, np.maximum(cpos, 0),
+                                 side="right") - 1
+            c0 = np.clip(c0, 0, max(len(self.ctx_offs) - 2, 0))
+            ctx_ok = in_genome | (cpos + L <= self.ctx_offs[c0 + 1])
+            valid &= ctx_ok
+            cr, cp, ori, ri, L, c0, in_genome = (
+                cr[valid], cp[valid], ori[valid], ri[valid], L[valid],
+                c0[valid], in_genome[valid])
+            if not len(cr):
+                return
+        with span("lr2rmats.sr.verify"):
+            # Hamming verify: rc candidates compare the rc read buffer
+            count("lr2rmats.sr.candidates", len(cr))
+            mm = np.empty(len(cr), np.int32)
+            if self._dev_verifier is not None or lib is not None:
+                # unified reads buffer: fwd ++ rc; segment R+j is the rc of
+                # read R-1-j, so rc of read i = segment 2R-1-i.  ONE shared
+                # construction — the device and native verifiers must stay
+                # bit-equal, so they must read identical candidate layouts.
+                comb = np.concatenate([fwd, rc_all])
+                comb_off = np.empty(2 * R + 1, np.int64)
+                comb_off[: R + 1] = offs
+                comb_off[R + 1:] = (2 * total -
+                                    offs[R - 1:: -1].astype(np.int64))
+                # read id for candidate: fwd -> ri, rc -> index of rc segment
+                rc_seg = 2 * R - 1 - ri
+                rid_comb = np.where(ori == 1, rc_seg, ri).astype(np.int32)
+            if self._dev_verifier is not None:
+                mm = self._dev_verifier.verify(comb, comb_off, rid_comb, cp)
+            elif lib is not None:
+                lib.hamming_pairs_c(self.buf, nbuf, comb,
+                                    np.ascontiguousarray(comb_off),
+                                    np.ascontiguousarray(rid_comb),
+                                    np.ascontiguousarray(cp), len(cp), mm)
+            else:
+                for t in range(len(cr)):
+                    if ori[t]:
+                        seg = rc_all[total - int(offs[ri[t] + 1]):
+                                     total - int(offs[ri[t]])]
+                    else:
+                        seg = fwd[int(offs[ri[t]]): int(offs[ri[t] + 1])]
+                    mm[t] = int(np.sum(self.buf[cp[t]: cp[t] + L[t]] != seg))
+            max_mm = (p.max_mm_frac * L).astype(np.int32)
+            okmm = mm <= max_mm
+            cr, cp, ori, ri, L, c0, in_genome, mm = (
+                cr[okmm], cp[okmm], ori[okmm], ri[okmm], L[okmm], c0[okmm],
+                in_genome[okmm], mm[okmm])
+            if not len(cr):
+                return None
+        with span("lr2rmats.sr.best"):
+            # group by read (both orientations together)
+            order = np.lexsort((cp, ori, ri))
+            cr, cp, ori, ri, L, c0, in_genome, mm = (
+                x[order] for x in (cr, cp, ori, ri, L, c0, in_genome, mm))
+            grp_start = np.concatenate(
+                [[0], np.nonzero(ri[1:] != ri[:-1])[0] + 1])
+            best_mm = np.minimum.reduceat(mm, grp_start)
+            best_per_cand = np.repeat(
+                best_mm, np.diff(np.concatenate([grp_start, [len(ri)]])))
+            is_best = mm == best_per_cand
+            off_in_ctx = cp - self.gn - self.ctx_offs[c0]
+            left = self.ctx_left_len[c0].astype(np.int64)
+            lpart = left - off_in_ctx
+            rpart = off_in_ctx + L - left
+            return (ri, cp, ori, L, c0, in_genome, mm, grp_start, is_best,
+                    lpart, rpart)
 
     def result(self) -> SJTable:
         n = len(self.jtid)
