@@ -17,7 +17,10 @@ exits non-zero):
      A=128/B=1664 and A=64/B=320 on anchor rows of the workload's first
      batch plus random rows; shift DP at band 8, M=192, G=256/512 and band
      4, M=64, G=128, and at the junction flank shape (both flanks of the
-     first batch's gaps); the junction kernel (both flank DPs and the
+     first batch's gaps); polish_trace (the placement's split and both
+     tracebacks) at band 8, M=192, G=1280 over the card's own S matrices,
+     every output word, beside the torch best-split reduction it took off
+     the path; the junction kernel (both flank DPs and the
      combine in one launch) on the junction gaps of the first batch plus
      random gaps (G >= 2048), all six outputs; hamming at 131072
      candidates of 150 bases, windows past the buffer end included, then
@@ -141,8 +144,9 @@ HAMMING_C, HAMMING_L = 131072, 150
 HAMMING_EDGE_LENS = (0, 1, 7, 149, 150, 301)
 SWITCHES = ("LR2RMATS_DEVICE_JUNCTIONS", "LR2RMATS_DEVICE_SEED",
             "LR2RMATS_DEVICE_SJCOUNT")
-PATH_KERNELS = ("chain_dp_backtrack", "chain_dp", "shift_dp", "junction",
-                "hamming", "log_probe")
+PATH_KERNELS = ("chain_dp_backtrack", "chain_dp", "shift_dp", "polish_trace",
+                "junction", "hamming", "log_probe")
+TRACE_G = 1280                                   # polish lanes of a deep call
 MESH_READS, MESH_Q, MESH_H, MESH_H_WIDE = 1536, 128, 4, 8
 # (A, B, window): random rows at the main path's window 64, and at windows
 # 256 and 1024 (the DP-only kernel's rings of 256 and 1024 slots)
@@ -161,7 +165,8 @@ ENTRY_SCALING_PROCS = (1, 2)
 WORKERS = {"LR2RMATS_SEED_WORKERS": "2", "LR2RMATS_BUILD_WORKERS": "2"}
 # the aligner's own counts that must not move with the pools
 WORKER_COUNTS = ("chain_kernel_launches", "junction_kernel_launches",
-                 "shift_dp_kernel_launches", "seed_lookup_calls",
+                 "shift_dp_kernel_launches", "polish_trace_kernel_launches",
+                 "seed_lookup_calls",
                  "junction_calls", "junction_gaps", "junction_found")
 GROUP_TIMEOUT_S = 300
 # the bound of a kernel: the larger of the bytes it must move over the
@@ -367,6 +372,103 @@ def check_shift_dp(genome_codes, dev):
             raise AssertionError(f"shift_dp kernel disagrees with the plain "
                                  f"version at band={band} M={M} G={G}")
     return worst, times
+
+
+def best_pair_torch(SL, SR, m, dl, dr, band):
+    """The torch best-split reduction polish ran before polish_trace (the
+    score alone: gather, where, max over j), timed beside the kernel."""
+    import torch
+    M1, W, G = SL.shape
+    j = torch.arange(M1, dtype=torch.int64, device=SL.device)[:, None]
+    m64, dl64, dr64 = (t.to(torch.int64)[None, :] for t in (m, dl, dr))
+    cl = dl64 + band - j
+    cr = dr64 + band - (m64 - j)
+    okj = (j <= m64) & (cl >= 0) & (cl < W) & (cr >= 0) & (cr < W)
+    slj = SL.reshape(M1 * W, G).gather(0, j * W + cl.clamp(0, W - 1))
+    mj = (m64 - j).clamp(0, M1 - 1)
+    srj = SR.reshape(M1 * W, G).gather(0, mj * W + cr.clamp(0, W - 1))
+    neg = torch.tensor(-1e18, dtype=torch.float32, device=SL.device)
+    return torch.where(okj, slj + srj, neg).max(0).values
+
+
+def check_polish_trace(genome_codes, dev):
+    """polish_trace == its plain version at the polish shape, every word;
+    returns (max_abs_err of the score, (ms, queued, plain_ms, bytes, ops),
+    (reduction ms, queued))."""
+    import torch
+    from lr2rmats_tpu_torch.diag.measure import cuda_ms, queued_ms
+    from lr2rmats_tpu_torch.ops.splice import (TRACE_HEAD, polish_trace,
+                                               polish_trace_reference,
+                                               shift_dp)
+    band, M, G = 8, 192, TRACE_G
+    rng = np.random.default_rng(SEED + 5)
+    arrs = {k: np.full((M + (band if "win" in k else 0), G), -9, np.int8)
+            for k in ("q", "qr", "lwin", "rwin")}
+    m, dl, dr = (np.zeros(G, np.int32) for _ in range(3))
+    n = len(genome_codes)
+    for g in range(G):
+        mg = int(rng.integers(0, M + 1))
+        L0 = int(rng.integers(0, n - 2 * M - 4000))
+        R0 = L0 + mg + band + int(rng.integers(0, 3000))
+        DL = int(rng.integers(0, mg + band + 1))
+        DR = int(np.clip(mg - DL + rng.integers(-band, band + 1), 0,
+                         mg + band))
+        qw = np.concatenate([genome_codes[L0: L0 + DL],
+                             genome_codes[R0 - DR: R0]])[:mg]
+        qw = np.concatenate([qw, genome_codes[:mg - len(qw)]]).astype(np.int8)
+        mut = rng.random(mg) < 0.08
+        qw[mut] = (qw[mut] + 1) % 4
+        arrs["q"][:mg, g], arrs["qr"][:mg, g] = qw, qw[::-1]
+        arrs["lwin"][:mg + band, g] = genome_codes[L0: L0 + mg + band]
+        arrs["rwin"][:mg + band, g] = genome_codes[R0 - mg - band: R0][::-1]
+        m[g], dl[g], dr[g] = mg, DL, DR
+    t = {k: torch.from_numpy(a).to(dev) for k, a in
+         (*arrs.items(), ("m", m), ("dl", dl), ("dr", dr))}
+    SL = shift_dp(t["q"], t["lwin"], t["m"], band)
+    SR = shift_dp(t["qr"], t["rwin"], t["m"], band)
+    args = (SL, SR, t["q"], t["qr"], t["lwin"], t["rwin"], t["m"], t["dl"],
+            t["dr"])
+    got = polish_trace(*args)
+    t0 = time.perf_counter()
+    want = polish_trace_reference(*(a.cpu() for a in args))
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = got.cpu()
+    same = torch.equal(got, want)
+    score = lambda r: r[:, 0].contiguous().view(torch.float32)
+    fin = want[:, 1] >= 0
+    err = float((score(got) - score(want))[fin].abs().max()) \
+        if bool(fin.any()) else 0.0
+    red = best_pair_torch(SL, SR, t["m"], t["dl"], t["dr"], band).cpu()
+    if not torch.equal(red, score(want)):
+        raise AssertionError("polish_trace's score is not the torch "
+                             "best-split reduction's")
+    ms = cuda_ms(lambda: polish_trace(*args), 20)
+    queued = queued_ms(lambda: polish_trace(*args), 20)
+    red_ms = cuda_ms(lambda: best_pair_torch(SL, SR, t["m"], t["dl"],
+                                             t["dr"], band), 20)
+    red_q = queued_ms(lambda: best_pair_torch(SL, SR, t["m"], t["dl"],
+                                              t["dr"], band), 20)
+    # bytes it needs: m, dl, dr; the two S cells of each split in the band;
+    # per walk step three S cells and two code bytes; each row's head and
+    # the runs its walks write (the zero padding past them is not needed)
+    steps = int((want[:, TRACE_HEAD:].numpy().astype(np.int64) >> 4).sum())
+    mm = m.astype(np.int64)
+    jj = np.arange(M + 1)[:, None]
+    cl = dl[None, :] + band - jj
+    cr = dr[None, :] + band - (mm[None, :] - jj)
+    splits = int(((jj <= mm) & (cl >= 0) & (cl < 2 * band + 1) & (cr >= 0)
+                  & (cr < 2 * band + 1)).sum())
+    runs = int(want[:, 4:6].clamp(min=0).sum())
+    n_bytes = 12 * G + 8 * splits + 14 * steps + 4 * TRACE_HEAD * G + 4 * runs
+    ops = 2 * splits + 8 * steps
+    say("kernels", f"polish_trace band={band} M={M} G={G}: exact={same} "
+        f"({int(fin.sum())} lanes placed, {steps} walk steps) kernel "
+        f"{ms:.4f} ms (queued {queued:.4f}), plain {plain_ms:.1f} ms; the "
+        f"torch best-split reduction it replaced {red_ms:.4f} ms (queued "
+        f"{red_q:.4f})")
+    if not same:
+        raise AssertionError("polish_trace disagrees with the plain version")
+    return err, (ms, queued, plain_ms, n_bytes, ops), (red_ms, red_q)
 
 
 def random_gaps(rng, codes, n):
@@ -1434,6 +1536,7 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     chain_err, chain_t = check_chain(aligner, reads[:1536], dev)
     shift_err, shift_t = check_shift_dp(genome.codes, dev)
+    trace_err, trace_t, trace_red = check_polish_trace(genome.codes, dev)
     junc_err, junc_t, (flank_shape, flank_t) = check_junction(
         aligner, reads[:1536], dev)
     ham_err, ham_t = check_hamming(genome.codes, dev)
@@ -1451,7 +1554,7 @@ def main(argv=None) -> int:
     ref_wall = time.perf_counter() - t0
     rb, sam, wall, launches, kernel_ms, st, peak_mb = align_slice(
         "slice 1", aligner, seqset, sam_ref, dev)
-    for name in ("chain_dp_backtrack", "shift_dp"):
+    for name in ("chain_dp_backtrack", "shift_dp", "polish_trace"):
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched by slice 1")
     path_launches = [launches]
@@ -1608,7 +1711,8 @@ def main(argv=None) -> int:
     path_launches.extend(run_entry_points(here, dev))
     say("entry", f"phase wall {time.perf_counter() - t_phase:.1f} s")
 
-    total = {k: sum(pl[k] for pl in path_launches) for k in PATH_KERNELS}
+    total = {k: sum(pl.get(k, 0) for pl in path_launches)
+             for k in PATH_KERNELS}
     for name, n in total.items():
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched by a "
@@ -1636,6 +1740,10 @@ def main(argv=None) -> int:
         entry("shift_dp", "shift_dp.cu",
               "lr2rmats_tpu/ops/splice_device.py:295", shift_err,
               shift_t[SHIFT_SHAPES[1][:3]]),
+        entry("polish_trace", "shift_dp.cu",
+              "none: the host re-run of lr2rmats_tpu/align/polish.py "
+              "polish_batch's deferred _constrained_place; off the path: "
+              "the torch best-split reduction", trace_err, trace_t),
         entry("junction", "junction.cu",
               "lr2rmats_tpu/ops/splice_device.py:260 (_junction_scan: :295 "
               "_dp_kernel x2 + :152 _combine)", junc_err, junc_t),
@@ -1646,6 +1754,8 @@ def main(argv=None) -> int:
               lib_queued=probe_t[6]),
     ]
     kernels[-1]["launch_floor_queued_ms"] = probe_t[7]
+    kernels[3]["replaced_reduction_ms"] = trace_red[0]
+    kernels[3]["replaced_reduction_queued_ms"] = trace_red[1]
     # the junction flanks' shift DP: a second shape of the shift_dp entry
     flank_bound, flank_by = bound(flank_t[3], flank_t[4])
     polish_t = shift_t[SHIFT_SHAPES[1][:3]]

@@ -76,13 +76,13 @@ from ..ops.chain import (DP_MIN_ROWS, FUSED_MIN_ROWS, chain_dp,
 from ..ops.junction import (B_DEF as JUNCTION_BAND, MGAP, cell_ops,
                             junction_batch, junction_place,
                             prepare_junction_batch)
-from ..ops.splice import shift_dp
 from ..utils import default_threads, log
 from ..utils.log import count, current_call, span
 from .aligner import AlignParams, SpliceAligner
 from .chain import ChainParams, backtrack, chain_anchors
 from .mapq import MAPQ_UNIQUE, mapq_from_scores, mapq_from_scores_vec
-from .polish import _PLACE_G, _PLACE_M, B as POLISH_BAND, polish_batch
+from .polish import (_PLACE_G, _PLACE_M, B as POLISH_BAND, place_lanes,
+                     polish_batch)
 from .records import RecordBatch
 
 # Padded-anchor buckets of the chain dispatch.  The per-row anchor count is
@@ -1161,6 +1161,7 @@ class TorchBatchAligner(BatchAligner):
     def fresh_stats() -> Dict[str, float]:
         return {"device_wall_s": 0.0, "anchors": 0, "device_calls": 0,
                 "chain_kernel_launches": 0, "shift_dp_kernel_launches": 0,
+                "polish_trace_kernel_launches": 0,
                 "junction_kernel_launches": 0, "seed_lookup_calls": 0,
                 "junction_calls": 0, "junction_gaps": 0, "junction_found": 0}
 
@@ -1417,7 +1418,8 @@ class TorchBatchAligner(BatchAligner):
     def warmup_chain_shapes(self) -> None:
         """Build the kernels and launch each production shape once on every
         device (every chain bucket chunk, or one DP-only chunk for
-        backend="pallas"; the polish shift DP, and the junction kernel),
+        backend="pallas"; the polish placement's two shift DPs and its
+        traceback, and the junction kernel),
         so neither the nvcc build nor a first launch lands
         inside a timed region.  No-op on the CPU."""
         if self.device.type != "cuda":
@@ -1444,7 +1446,8 @@ class TorchBatchAligner(BatchAligner):
         win = torch.zeros((_PLACE_M + POLISH_BAND, _PLACE_G),
                           dtype=torch.int8, device=dev)
         m = torch.full((_PLACE_G,), _PLACE_M, dtype=torch.int32, device=dev)
-        shift_dp(q, win, m, POLISH_BAND)
+        d = torch.zeros((_PLACE_G,), dtype=torch.int32, device=dev)
+        place_lanes(q, q, win, win, m, d, d, POLISH_BAND)
         G, B = 128, JUNCTION_BAND
         q = torch.zeros((MGAP, G), dtype=torch.int32, device=dev)
         win = torch.zeros((MGAP + B, G), dtype=torch.int32, device=dev)
@@ -1459,12 +1462,15 @@ class TorchBatchAligner(BatchAligner):
 
     def _polish(self, rb: RecordBatch) -> int:
         """The junction consensus polish with its placement DP on
-        `device`, counting the shift-DP launches."""
+        `device`, counting the shift-DP and traceback launches."""
         n0 = _build.thread_launches("shift_dp")
+        t0 = _build.thread_launches("polish_trace")
         n = polish_batch(rb, self.inner.genome.codes,
                          self.index.chrom_offsets, self.device)
-        self._add_stats(shift_dp_kernel_launches=(
-            _build.thread_launches("shift_dp") - n0))
+        self._add_stats(
+            shift_dp_kernel_launches=_build.thread_launches("shift_dp") - n0,
+            polish_trace_kernel_launches=(
+                _build.thread_launches("polish_trace") - t0))
         return n
 
 

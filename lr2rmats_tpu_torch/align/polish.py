@@ -19,24 +19,29 @@ rewritten exactly.
 
 The batched forced-placement DP is the port's:
 
-  * `polish_best_pair` — both flank shift DPs (ops/splice.shift_dp, the
-    kernel) plus the best-split reduction in torch ops on the same device,
-    as the reference's `_polish_best_pair` does in XLA;
+  * `place_lanes` — both flank shift DPs (ops/splice.shift_dp) and the
+    split and both tracebacks (ops/splice.polish_trace) on the same
+    device, two kernels back to back: `_finish_place`'s result per lane;
   * `constrained_place_many` — packs the tasks as the reference's
     `_constrained_place_many` does (int8 lanes, `_PLACE_M` rows, lanes
-    padded to `_PLACE_G`) and returns ("defer", score) per batched task;
-    with `device=None` every task runs the host DP instead (the
-    reference's `host_dp=True`, the host aligner backend's polish);
-  * `polish_batch` — the reference's body with the port's placement.
+    padded to `_PLACE_G`), copies the traced lanes back once and returns
+    `_constrained_place`'s full result per batched task, where the
+    reference returns ("defer", score) and re-runs the host DP for the
+    traceback of each placement it accepts; with `device=None` every task
+    runs the host DP (the reference's `host_dp=True`, the host aligner
+    backend's polish);
+  * `polish_batch` — the reference's body with the port's placement, and
+    without the host re-run.
 
 Spans (utils/log.py) split `polish_batch` into five parts: support (the
 junction table, support, consensus winners, holders index), ties
 (`_resolve_weight_ties`), windows (the per-record windows and
 `constrained_place_many`'s triage and task packing), place (the copies,
-`polish_best_pair` and the copy back; the host DP with device=None) and
-accept (the sequential accept loop, with its host DP re-runs).  Counters
-count junction rows, winners, placements tried, device tasks, host DP
-re-runs and junctions re-placed.
+`place_lanes` and the copy back; the host DP with device=None) and accept
+(the sequential accept loop).  Counters count junction rows, winners,
+placements tried, device tasks, host placement DPs of tried junctions
+(`host_dp`: multi-junction records, windows the batch cannot carry, the
+device=None path; never a device task) and junctions re-placed.
 
 Dropped with respect to the reference: the relay canary (a small first
 call whose slowness routed the rest to the host), the `device_stats`
@@ -53,7 +58,7 @@ import torch
 from ..io.fasta import _COMP
 from ..io.sam import (FSECONDARY, FUNMAP, OP_D, OP_I, OP_M, OP_N, OP_S,
                       AlnRec, _CONSUME)
-from ..ops.splice import shift_dp
+from ..ops.splice import TRACE_HEAD, polish_trace, shift_dp, trace_runs
 from ..utils.log import count, span
 from .records import RecordBatch
 from .splice import (GAP, MATCH, MISMATCH, NEG, _motif_bonus, _shift_dp,
@@ -373,25 +378,31 @@ _PLACE_M = 192            # max query-window length eligible for the batch
 _PLACE_G = 256            # lane padding quantum
 
 
-def polish_best_pair(q, qr, lwin, rwin, m, dl, dr, band: int = B
-                     ) -> torch.Tensor:
-    """Best forced-placement score per lane, [G] float32: the max over
-    splits j <= m of SL[j, dl+band-j] + SR[m-j, dr+band-(m-j)], NEG where
-    no split fits the band (reference polish.py:_polish_best_pair)."""
+def place_lanes(q, qr, lwin, rwin, m, dl, dr, band: int = B
+                ) -> torch.Tensor:
+    """The forced placement of every lane on q's device: both flank shift
+    DPs, then the best split (last maximal j, NEG where no split fits the
+    band) and both tracebacks, [G, trace_width(M, band)] int32 rows
+    (ops/splice.py polish_trace)."""
     SL = shift_dp(q, lwin, m, band)                  # [M+1, W, G]
     SR = shift_dp(qr, rwin, m, band)
-    M1, W, G = SL.shape
-    dev = SL.device
-    j = torch.arange(M1, dtype=torch.int64, device=dev)[:, None]
-    m64, dl64, dr64 = (t.to(torch.int64)[None, :] for t in (m, dl, dr))
-    cl = dl64 + band - j                             # [M1, G]
-    cr = dr64 + band - (m64 - j)
-    okj = (j <= m64) & (cl >= 0) & (cl < W) & (cr >= 0) & (cr < W)
-    slj = SL.reshape(M1 * W, G).gather(0, j * W + cl.clamp(0, W - 1))
-    mj = (m64 - j).clamp(0, M1 - 1)
-    srj = SR.reshape(M1 * W, G).gather(0, mj * W + cr.clamp(0, W - 1))
-    neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
-    return torch.where(okj, slj + srj, neg).max(0).values
+    return polish_trace(SL, SR, q, qr, lwin, rwin, m, dl, dr, band)
+
+
+def _traced(row: np.ndarray, R: int):
+    """`_constrained_place`'s (score, lops, rops, match, nm) from one lane's
+    row of place_lanes (R runs a flank); None where no split fits."""
+    bj, match, nm, nl, nr = (int(v) for v in row[1:TRACE_HEAD])
+    if bj < 0:
+        return None
+    if nl < 0 or nr < 0:
+        # a walk over finite cells always finds one: a fault of the kernel
+        raise RuntimeError(f"polish_trace: a walk from split {bj} found no "
+                           f"predecessor (run counts {nl}, {nr})")
+    runs = row[TRACE_HEAD:].astype(np.int64)
+    lops = [(int(w) & 0xF, int(w) >> 4) for w in runs[:nl]]
+    rops = [(int(w) & 0xF, int(w) >> 4) for w in runs[R: R + nr]]
+    return float(row[:1].view(np.float32)[0]), lops, rops, match, nm
 
 
 def constrained_place_many(items: List[tuple], ref: np.ndarray,
@@ -399,13 +410,13 @@ def constrained_place_many(items: List[tuple], ref: np.ndarray,
     """`_constrained_place` over (qwin, L0, R0, don, acc) tasks.
 
     Infeasible tasks give None.  Tasks the batch cannot carry (window
-    longer than _PLACE_M, span < m+B) run the host DP and give its full
-    result.  The rest run one batched placement DP on `device` and give
-    ("defer", score): only the score comes back, and polish_batch re-runs
-    the host DP for the traceback of the placements it accepts.  With
-    device=None they run the host DP too."""
+    longer than _PLACE_M, span < m+B) run the host DP.  The rest run
+    `place_lanes` on `device` and come back, in one copy, with their
+    tracebacks: the same full result.  With device=None they run the host
+    DP too.  Counts the host DPs (`lr2rmats.polish.host_dp`)."""
     out: List[Optional[tuple]] = [None] * len(items)
     todo = []
+    n_host = 0
     with span("lr2rmats.polish.windows"):
         for t, (qwin, L0, R0, don, acc) in enumerate(items):
             m = len(qwin)
@@ -414,16 +425,19 @@ def constrained_place_many(items: List[tuple], ref: np.ndarray,
             if DL < 0 or DR < 0 or DL > m + B or DR > m + B:
                 continue                               # infeasible: None
             if m > _PLACE_M or (R0 - L0) < m + B:
+                n_host += 1
                 out[t] = _constrained_place(qwin, ref, L0, R0, don, acc)
                 continue
             todo.append(t)
     if not todo:
+        count("lr2rmats.polish.host_dp", n_host)
         return out
     if device is None:
         with span("lr2rmats.polish.place"):
             for t in todo:
                 qwin, L0, R0, don, acc = items[t]
                 out[t] = _constrained_place(qwin, ref, L0, R0, don, acc)
+        count("lr2rmats.polish.host_dp", n_host + len(todo))
         return out
     count("lr2rmats.polish.tasks", len(todo))
     with span("lr2rmats.polish.windows"):
@@ -453,10 +467,11 @@ def constrained_place_many(items: List[tuple], ref: np.ndarray,
         dev = torch.device(device)
         args = [torch.from_numpy(a).to(dev) for a in
                 (q, qr, lwin, rwin, m_arr, dl_arr, dr_arr)]
-        best = polish_best_pair(*args).cpu().numpy().astype(np.float64)
+        rows = place_lanes(*args).cpu().numpy()
+        R = trace_runs(M)
         for g, t in enumerate(todo):
-            # the host split loop needs sc > NEG/2 to accept any j
-            out[t] = ("defer", float(best[g])) if best[g] > NEG / 2 else None
+            out[t] = _traced(rows[g], R)
+    count("lr2rmats.polish.host_dp", n_host)
     return out
 
 
@@ -578,6 +593,24 @@ def _resolve_weight_ties(rb: RecordBatch, jt: dict, holders,
                     winners[(tid, d2, a2)] = (tid, d, a)
 
 
+def _set_cigars(rb: RecordBatch, new: Dict[int, np.ndarray]) -> None:
+    """Replace the CIGARs of records {i: codes} in one rebuild of the
+    ragged buffer: a rebuild a record costs O(total) each time, ~1000
+    times a deep call."""
+    if not new:
+        return
+    offs = rb.cig_offs
+    counts = np.diff(offs)
+    pieces, at = [], 0
+    for i in sorted(new):
+        pieces += [rb.cig_buf[at: offs[i]], new[i]]
+        at = offs[i + 1]
+        counts[i] = len(new[i])
+    pieces.append(rb.cig_buf[at:])
+    rb.cig_buf = np.concatenate(pieces).astype(np.uint32, copy=False)
+    rb.cig_offs = np.concatenate([[0], np.cumsum(counts)]).astype(offs.dtype)
+
+
 def polish_batch(rb: RecordBatch, genome_codes: np.ndarray,
                  chrom_offsets: np.ndarray, device=None,
                  changed_out: Optional[list] = None) -> int:
@@ -633,7 +666,8 @@ def polish_batch(rb: RecordBatch, genome_codes: np.ndarray,
     if items:
         batch_place = dict(zip(singles, constrained_place_many(
             items, genome_codes, device)))
-    n_fix = n_redo = 0
+    n_fix = n_host = 0
+    new_cigars: Dict[int, np.ndarray] = {}
     with span("lr2rmats.polish.accept"):
         for ri in sorted(by_rec):
             todo = sorted(by_rec[ri])
@@ -664,17 +698,12 @@ def polish_batch(rb: RecordBatch, genome_codes: np.ndarray,
                 L0, R0 = off + r0, off + r1
                 gd, ga = off + wd, off + wa
                 if ri not in batch_ctx:
+                    n_host += 1
                     res = _constrained_place(qwin, genome_codes, L0, R0,
                                              gd, ga)
                 if res is None:
                     continue
-                if res[0] == "defer":
-                    # the device returned the score only; decide acceptance
-                    # first and run the host traceback DP just for winners
-                    new_sc = res[1]
-                    lops = None
-                else:
-                    new_sc, lops, rops, new_match, new_nm = res
+                new_sc, lops, rops, new_match, new_nm = res
                 old_sc, old_match, old_nm = _window_score(
                     ops, lo, hi, q, q0, genome_codes, L0)
                 bonus_old = _motif_bonus(genome_codes, off + don,
@@ -685,13 +714,6 @@ def polish_batch(rb: RecordBatch, genome_codes: np.ndarray,
                 delta = DELTA_STRONG if win_w >= 2 * own_w + 2 else DELTA
                 if new_sc + bonus_new < old_sc + bonus_old - delta:
                     continue
-                if lops is None:
-                    n_redo += 1
-                    res = _constrained_place(qwin, genome_codes, L0, R0,
-                                             gd, ga)
-                    if res is None:
-                        continue
-                    new_sc, lops, rops, new_match, new_nm = res
                 new_seg = [(op, l) for op, l in lops if l > 0]
                 new_seg.append((OP_N, wa - wd + 1))
                 new_seg += [(op, l) for op, l in rops if l > 0]
@@ -709,11 +731,13 @@ def polish_batch(rb: RecordBatch, genome_codes: np.ndarray,
                 changed = True
                 n_fix += 1
             if changed:
-                rb.set_cigar(ri, np.array([(l << 4) | op for op, l in ops
-                                           if l > 0], np.uint32))
+                new_cigars[ri] = np.array([(l << 4) | op for op, l in ops
+                                           if l > 0], np.uint32)
                 if changed_out is not None:
                     changed_out.append(ri)
-    count("lr2rmats.polish.redo", n_redo)
+        # each record reads only its own CIGAR, before its own rewrite
+        _set_cigars(rb, new_cigars)
+    count("lr2rmats.polish.host_dp", n_host)
     count("lr2rmats.polish.replaced", n_fix)
     return n_fix
 

@@ -49,20 +49,6 @@ class RecordBatch:
     def cigar(self, i: int) -> np.ndarray:
         return self.cig_buf[self.cig_offs[i]: self.cig_offs[i + 1]]
 
-    def set_cigar(self, i: int, cig: np.ndarray) -> None:
-        """Replace record i's CIGAR (ragged surgery; O(total) worst case,
-        only used by the low-volume polish patch path)."""
-        old = self.cig_offs[i + 1] - self.cig_offs[i]
-        delta = len(cig) - old
-        if delta == 0:
-            self.cig_buf[self.cig_offs[i]: self.cig_offs[i + 1]] = cig
-            return
-        self.cig_buf = np.concatenate([
-            self.cig_buf[: self.cig_offs[i]], np.asarray(cig, np.uint32),
-            self.cig_buf[self.cig_offs[i + 1]:]])
-        self.cig_offs = self.cig_offs.copy()
-        self.cig_offs[i + 1:] += delta
-
     def seq_codes(self, i: int) -> np.ndarray:
         """As-aligned codes (reverse-complemented when seq_rc[i])."""
         s = self.seq_buf[self.seq_offs[self.seq_id[i]]:

@@ -43,9 +43,10 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas=-v"]
 
-# launch names; chain.cu launches both chain_dp_backtrack and chain_dp
-KERNELS = ("chain_dp_backtrack", "chain_dp", "shift_dp", "junction",
-           "hamming", "log_probe")
+# launch names; chain.cu launches both chain_dp_backtrack and chain_dp,
+# shift_dp.cu both shift_dp and polish_trace
+KERNELS = ("chain_dp_backtrack", "chain_dp", "shift_dp", "polish_trace",
+           "junction", "hamming", "log_probe")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 # launches of every kernel per card index
 CARD_LAUNCHES: Dict[int, int] = {}
@@ -136,6 +137,10 @@ SIGNATURES: Dict[str, List[object]] = {
         #                                     intron_scale
         _P, _P, _P],                        # f_out, parent_out, stream
     "lr2_shift_dp": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "lr2_polish_trace": [
+        _P, _P, _P, _P, _P, _P,             # SL, SR, q, qr, lwin, rwin
+        _P, _P, _P, _P,                     # m, dl, dr, out
+        _I, _I, _I, _P],                    # M, G, band, stream
     "lr2_junction": [
         _P, _P, _P, _P, _P, _P, _P, _P,     # q, qr, lwin, rwin, m, span, dok,
         _P, _P,                             # aok, el, er

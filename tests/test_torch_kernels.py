@@ -34,13 +34,15 @@ import pytest
 import torch
 
 from lr2rmats_tpu_torch.align.chain import ChainParams
-from lr2rmats_tpu_torch.align.polish import polish_best_pair
+from lr2rmats_tpu_torch.align.polish import place_lanes
 from lr2rmats_tpu_torch.ops import _build
 from lr2rmats_tpu_torch.ops.chain import (chain_dp, chain_dp_backtrack,
                                           chain_dp_backtrack_reference,
                                           chain_dp_reference,
                                           chain_params_for_kernel)
-from lr2rmats_tpu_torch.ops.splice import shift_dp, shift_dp_reference
+from lr2rmats_tpu_torch.ops.splice import (polish_trace,
+                                           polish_trace_reference, shift_dp,
+                                           shift_dp_reference, trace_width)
 
 pytestmark = pytest.mark.cuda
 
@@ -617,6 +619,8 @@ def test_shift_dp_kernel_edge_gaps(dev, kind, band, M, G, dtype):
 
 
 def test_polish_best_pair_card_matches_cpu(dev):
+    """The placement's best-split score (place_lanes: both shift DPs and
+    polish_trace on the card) == the CPU run's, lane by lane."""
     band, M, G = 8, 192, 256
     q, lwin, m = _windows(1, band, M, G, np.int8)
     qr, rwin, _ = _windows(2, band, M, G, np.int8)
@@ -624,9 +628,115 @@ def test_polish_best_pair_card_matches_cpu(dev):
     dl = rng.integers(-2, M + band + 2, G).astype(np.int32)
     dr = rng.integers(-2, M + band + 2, G).astype(np.int32)
     arrs = [torch.from_numpy(a) for a in (q, qr, lwin, rwin, m, dl, dr)]
-    want = polish_best_pair(*arrs)
-    got = polish_best_pair(*[a.to(dev) for a in arrs]).cpu()
+    want = place_lanes(*arrs)
+    got = place_lanes(*[a.to(dev) for a in arrs]).cpu()
+    assert torch.equal(got[:, 0], want[:, 0])
+    assert bool((want[:, 1] >= 0).any())
+
+
+def _placement_lanes(seed, M, G, band=8):
+    """Polish lanes as constrained_place_many packs them: a read window of
+    m <= M bases over the left flank's DL ref bases and the right flank's
+    DR (DL + DR about m), 8% errors and, in every third lane, a 1-3 base
+    indel at the junction; every fifth lane outside the band."""
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, 50_000 + 2 * G).astype(np.int8)
+    q = np.full((M, G), -9, np.int8)
+    qr = np.full((M, G), -9, np.int8)
+    lwin = np.full((M + band, G), -9, np.int8)
+    rwin = np.full((M + band, G), -9, np.int8)
+    m, dl, dr = (np.zeros(G, np.int32) for _ in range(3))
+    for g in range(G):
+        mg = M if g % 7 == 0 else int(rng.integers(0, M + 1))
+        L0 = int(rng.integers(0, 40_000))
+        R0 = L0 + mg + band + int(rng.integers(0, 2000))
+        DL = int(rng.integers(0, mg + band + 1))
+        DR = int(np.clip(mg - DL + rng.integers(-band, band + 1), 0,
+                         mg + band))
+        if g % 5 == 4:
+            DL = (-1, mg + band + 1)[g % 2]
+        qw = np.concatenate([ref[L0: L0 + max(DL, 0)],
+                             ref[R0 - DR: R0]])
+        if g % 3 == 0 and len(qw) > 6:
+            at, k = int(rng.integers(1, len(qw) - 4)), int(rng.integers(1, 4))
+            qw = (np.concatenate([qw[:at], qw[at + k:]]) if g % 2 else
+                  np.concatenate([qw[:at], np.full(k, 2, np.int8), qw[at:]]))
+        qw = np.concatenate([qw, ref[:max(mg - len(qw), 0)]])[:mg].copy()
+        mut = rng.random(mg) < 0.08
+        qw[mut] = (qw[mut] + 1) % 4
+        q[:mg, g], qr[:mg, g] = qw, qw[::-1]
+        lwin[:mg + band, g] = ref[L0: L0 + mg + band]
+        rwin[:mg + band, g] = ref[R0 - mg - band: R0][::-1]
+        m[g], dl[g], dr[g] = mg, DL, DR
+    return q, qr, lwin, rwin, m, dl, dr
+
+
+@pytest.mark.parametrize("G", [1280, 37])
+def test_polish_trace_kernel_matches_plain(dev, G):
+    """csrc/shift_dp.cu's polish_trace == polish_trace_reference bit for bit
+    in every word (score, bj, match, nm, both run counts and run lists) at
+    the polish shape M = 192, over the card's own S matrices."""
+    band, M = 8, 192
+    arrs = [torch.from_numpy(a).to(dev) for a in
+            _placement_lanes(11 + G, M, G, band)]
+    q, qr, lwin, rwin, m, dl, dr = arrs
+    SL, SR = shift_dp(q, lwin, m, band), shift_dp(qr, rwin, m, band)
+    before = _build.LAUNCHES["polish_trace"]
+    got = polish_trace(SL, SR, *arrs).cpu()
+    assert _build.LAUNCHES["polish_trace"] == before + 1
+    want = polish_trace_reference(*(t.cpu() for t in (SL, SR, *arrs)))
+    assert got.shape == (G, trace_width(M))
     assert torch.equal(got, want)
+    placed = want[:, 1] >= 0
+    assert bool(placed.any()) and bool((~placed).any())
+    assert bool((want[placed, 4] > 1).any())          # gaps in the walks
+    assert bool((want[:, 4:6] >= 0).all())             # no walk handed back
+
+
+def test_polish_batch_card_matches_cpu(dev):
+    """polish_batch with the placement on the card == the CPU run (the plain
+    versions) on many reads: the same CIGARs, NM, AS and changed records,
+    with polish_trace launched."""
+    from lr2rmats_tpu_torch.align.polish import polish_batch
+    from lr2rmats_tpu_torch.align.records import RecordBatch
+    from lr2rmats_tpu_torch.io.fasta import decode_seq
+    from lr2rmats_tpu_torch.io.sam import OP_M, OP_N, AlnRec
+    rng = np.random.default_rng(17)
+    codes = rng.integers(0, 4, 2_000_000).astype(np.uint8)
+    recs = []
+    for gi in range(300):
+        base = 2000 + gi * 6000
+        don1, acc1 = base + 100, base + 899
+        don2, acc2 = base + 1000, base + 1799
+        for d, a in ((don1, acc1), (don2, acc2)):
+            codes[d], codes[d + 1] = 2, 3
+            codes[a - 1], codes[a] = 0, 2
+        read = np.concatenate([codes[base: don1], codes[acc1 + 1: don2],
+                               codes[acc2 + 1: acc2 + 101]]).copy()
+        for k in range(6):
+            seq = read.copy()
+            mut = rng.random(len(seq)) < 0.04
+            seq[mut] = (seq[mut] + 1) % 4
+            s1 = 0 if k < 3 else int(rng.integers(-4, 5))
+            s2 = 0 if k < 3 or gi % 2 else int(rng.integers(-4, 5))
+            ops = [(OP_M, 100 + s1), (OP_N, 800), (OP_M, 101 - s1 + s2),
+                   (OP_N, 800), (OP_M, 100 - s2)]
+            recs.append(AlnRec(
+                qname=f"g{gi}r{k}", flag=0, tid=0, pos=base, mapq=60,
+                cigar=np.array([(l << 4) | op for op, l in ops], np.uint32),
+                seq=decode_seq(seq), tags={"NM": 0, "AS": 0}))
+    offs = np.array([0, len(codes)], np.int64)
+    cpu = RecordBatch.from_alnrecs(recs)
+    card = RecordBatch.from_alnrecs(recs)
+    c_cpu, c_card = [], []
+    before = _build.LAUNCHES["polish_trace"]
+    n_cpu = polish_batch(cpu, codes, offs, "cpu", changed_out=c_cpu)
+    n_card = polish_batch(card, codes, offs, dev, changed_out=c_card)
+    assert _build.LAUNCHES["polish_trace"] > before
+    assert n_card == n_cpu > 100
+    assert c_card == c_cpu
+    for k in ("cig_buf", "cig_offs", "nm", "score"):
+        assert np.array_equal(getattr(card, k), getattr(cpu, k)), k
 
 
 def test_refused_launch_raises(dev):
@@ -648,6 +758,7 @@ def test_slice_on_card_matches_host_backend(dev):
     got = port.align_seqset_packed(seqset).emit_sam(port.refs)
     assert port.stats["chain_kernel_launches"] > 0
     assert port.stats["shift_dp_kernel_launches"] > 0
+    assert port.stats["polish_trace_kernel_launches"] > 0
     assert got == ref.align_seqset_packed(seqset).emit_sam(ref.refs)
 
 

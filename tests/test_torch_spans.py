@@ -38,7 +38,7 @@ POLISH_SPANS = {"lr2rmats.polish.support", "lr2rmats.polish.ties",
                 "lr2rmats.polish.windows", "lr2rmats.polish.place",
                 "lr2rmats.polish.accept"}
 POLISH_COUNTERS = {"lr2rmats.polish." + k for k in (
-    "junctions", "winners", "tried", "tasks", "redo", "replaced")}
+    "junctions", "winners", "tried", "tasks", "host_dp", "replaced")}
 SR_SPANS = {"lr2rmats.sr.call", "lr2rmats.sr.seed", "lr2rmats.sr.verify",
             "lr2rmats.sr.best", "lr2rmats.sr.pair", "lr2rmats.sr.count"}
 WORKER_SPANS = {"lr2rmats.align.seed", "lr2rmats.align.prepare",
@@ -192,6 +192,10 @@ def test_spans_of_a_call(entry):
     assert 0 < ctr["lr2rmats.polish.replaced"] <= \
         ctr["lr2rmats.polish.tried"]
     assert 0 < ctr["lr2rmats.polish.tasks"] <= ctr["lr2rmats.polish.tried"]
+    # the aligner gives polish its device: no task placed there runs the
+    # host DP again
+    assert ctr["lr2rmats.polish.host_dp"] <= \
+        ctr["lr2rmats.polish.tried"] - ctr["lr2rmats.polish.tasks"]
 
 
 @pytest.mark.parametrize("traced", [False, True])
