@@ -319,6 +319,10 @@ class BatchAligner:
         else:
             lo, hi = (look or idx.lookup)(h)
         cnt = (hi - lo).astype(np.int64)
+        # the lookup's work, under tracing: its queries and the places
+        # they hit before grouping
+        count("lr2rmats.align.lookup_queries", len(h))
+        count("lr2rmats.align.hits", int(cnt.sum()))
         keep = cnt > 0
         if not keep.any():
             return []
@@ -1189,7 +1193,13 @@ class TorchBatchAligner(BatchAligner):
         """Host side of the chain dispatch: route rows, chain the small
         bucket natively, pack the fixed device chunks (backend="pallas":
         pack every row into PALLAS_CHUNK-row chunks).  Numpy/C only, so it
-        runs on the seed worker."""
+        runs on the seed worker.  Counts (under tracing) the chain rows,
+        their anchors (as stats["anchors"] will) and the anchors of the
+        rows routed to the host chain."""
+        n_rows = len(rows)
+        lens = np.fromiter((len(r.qpos) for r in rows), np.int64, n_rows)
+        count("lr2rmats.align.rows", n_rows)
+        count("lr2rmats.align.anchors", int(lens.sum()))
         if self.backend == "pallas":
             dp = []
             for off in range(0, len(rows), PALLAS_CHUNK):
@@ -1199,11 +1209,10 @@ class TorchBatchAligner(BatchAligner):
                 dp.append((off, *_pack_rows(rows, part, A, len(part))))
             return dict(pre=[], chunks=[], host_rows=[], dp=dp)
         a_cap = A_BUCKETS[-1]
-        n_rows = len(rows)
-        lens = np.fromiter((len(r.qpos) for r in rows), np.int64, n_rows)
         nbig = np.fromiter((r.n_big for r in rows), np.int64, n_rows)
         qmx = np.fromiter((r.q_max for r in rows), np.int64, n_rows)
         host_mask = (lens > a_cap) | (nbig > EXC_ROWS) | (qmx >= (1 << 16))
+        count("lr2rmats.align.anchors_host", int(lens[host_mask].sum()))
         host_rows: List[int] = np.nonzero(host_mask)[0].tolist()
         bsel = np.searchsorted(np.array(A_BUCKETS, np.int64), lens)
         buckets: Dict[int, List[int]] = {}

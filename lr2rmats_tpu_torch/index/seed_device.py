@@ -7,6 +7,11 @@ one `torch.searchsorted` left and right, with one [2, nq] copy back.  The
 reference's lookup is `jnp.searchsorted`, an XLA op and not a Pallas
 kernel, so the torch op is its counterpart.  (lo, hi) equal
 `MinimizerIndex.lookup` exactly, with the same int64 contract.
+
+Under tracing (utils/log.py) each lookup is the span
+`lr2rmats.align.seed_lookup` (padding, copy in, both searches, copy
+back), and inside an `ops/_build.py` `timing()` block the two searches
+are timed on the card as one kernel, `seed_lookup`.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops import _build
+from ..utils.log import span
 
 _PAD = (1 << 31) - 1      # above every 2k-bit hash: lo == hi == n
 
@@ -63,6 +70,18 @@ class TorchSeedLookup:
         mine = self._thread
         return getattr(mine, "calls", 0), getattr(mine, "wall_s", 0.0)
 
+    def _search(self, tq: torch.Tensor, right: bool) -> torch.Tensor:
+        """One searchsorted of the queries in the table, timed on the card
+        under `seed_lookup` (each search its own event pair, so that work
+        other threads queue on the stream between the two is not
+        counted)."""
+        start = (_build.start_event(self.device)
+                 if self.device.type == "cuda" else None)
+        out = torch.searchsorted(self.table, tq, right=right,
+                                 out_int32=True)
+        _build.timed("seed_lookup", start, self.device)
+        return out
+
     def lookup(self, qhashes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """(lo, hi) int64 per query hash."""
         nq = len(qhashes)
@@ -70,15 +89,14 @@ class TorchSeedLookup:
             z = np.zeros(0, np.int64)
             return z, z
         t0 = time.perf_counter()
-        # queries padded to a power of two, as the reference pads them, so
-        # the allocator sees few distinct sizes across batches
-        q = np.full(_next_pow2(nq), _PAD, np.int32)
-        q[:nq] = qhashes.astype(np.int32)
-        tq = torch.from_numpy(q).to(self.device)
-        out = torch.stack([
-            torch.searchsorted(self.table, tq, out_int32=True),
-            torch.searchsorted(self.table, tq, right=True, out_int32=True),
-        ]).cpu().numpy()
+        with span("lr2rmats.align.seed_lookup"):
+            # queries padded to a power of two, as the reference pads
+            # them, so the allocator sees few distinct sizes across batches
+            q = np.full(_next_pow2(nq), _PAD, np.int32)
+            q[:nq] = qhashes.astype(np.int32)
+            tq = torch.from_numpy(q).to(self.device)
+            out = torch.stack([self._search(tq, False),
+                               self._search(tq, True)]).cpu().numpy()
         wall = time.perf_counter() - t0
         mine = self._thread
         mine.calls = getattr(mine, "calls", 0) + 1

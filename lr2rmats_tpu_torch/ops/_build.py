@@ -18,6 +18,8 @@ threads (the aligner's main thread and its seed and build workers), so
 the shared counts are updated under a lock of their own, and each thread
 also keeps its own (`thread_launches`): a caller's delta of those around
 its own calls counts its launches alone, whatever other threads launch.
+`timed(name, start, device)` closes such a pair and counts nothing: the
+device seed lookup's two torch searches are timed as `seed_lookup`.
 """
 
 from __future__ import annotations
@@ -214,6 +216,14 @@ def launched(name: str, rc: int, start, device) -> None:
     with _count_lock:
         LAUNCHES[name] += 1
         CARD_LAUNCHES[card] = CARD_LAUNCHES.get(card, 0) + 1
+    timed(name, start, device)
+
+
+def timed(name: str, start, device) -> None:
+    """Close the event pair that `start_event(device)` opened: the device
+    time from `start` to now on `device`'s current stream is summed under
+    `name` by the timing() block.  Counts no launch, so torch ops (the
+    device seed lookup's searches) are timed as one kernel too."""
     events = _events
     if start is not None and events is not None:
         import torch
