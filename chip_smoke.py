@@ -24,9 +24,13 @@ exits non-zero):
      combine in one launch) on the junction gaps of the first batch plus
      random gaps (G >= 2048), all six outputs; hamming at 131072
      candidates of 150 bases, windows past the buffer end included, then
-     reads of 0-301 bases at every offset mod 8 of both buffers; and the
+     reads of 0-301 bases at every offset mod 8 of both buffers; the
      two torch-op ports (seed lookup, junction counts) against their host
-     versions, host-clock times beside their bounds;
+     versions, host-clock times beside their bounds; and seed_select (the
+     seed hits' expansion, sort, grouping and selection) on a
+     GRCh38-shaped batch (diag/seed_batch.py: 1536 reads, ~870 queries
+     and ~4400 hits a read), every row and kept anchor, at the full
+     budget and at 6000 hits a read;
   4. slice 1: TorchBatchAligner(device="cuda").align_seqset_packed on the
      bench.py workload (lr2rmats_tpu_torch/synth.py, the same bytes: 20 Mb
      genome, ONT profile, seed 123, batch 1536) then emit_sam; the same
@@ -145,7 +149,10 @@ HAMMING_EDGE_LENS = (0, 1, 7, 149, 150, 301)
 SWITCHES = ("LR2RMATS_DEVICE_JUNCTIONS", "LR2RMATS_DEVICE_SEED",
             "LR2RMATS_DEVICE_SJCOUNT")
 PATH_KERNELS = ("chain_dp_backtrack", "chain_dp", "shift_dp", "polish_trace",
-                "junction", "hamming", "log_probe")
+                "junction", "hamming", "log_probe", "seed_select")
+# the seed selection's batch (diag/seed_batch.py: GRCh38's shape) and the
+# small budget that sends its widest reads to the host path
+SELECT_SEED, SELECT_SMALL_CAP = 19, 6000
 TRACE_G = 1280                                   # polish lanes of a deep call
 MESH_READS, MESH_Q, MESH_H, MESH_H_WIDE = 1536, 128, 4, 8
 # (A, B, window): random rows at the main path's window 64, and at windows
@@ -652,6 +659,48 @@ def check_hamming(codes, dev):
             + 8 * len(np.union1d(rid, rid + 1)) + nbytes(*args[3:], got),
             HAMMING_BASE_OPS * HAMMING_C * HAMMING_L)
     return err, (ms, queued, plain_ms, *work)
+
+
+def check_seed_select(dev):
+    """seed_select kernel == plain version on a GRCh38-shaped batch (1536
+    reads, ~870 queries and ~4400 hits a read): every row description
+    and kept anchor, at the full budget and at SELECT_SMALL_CAP hits."""
+    import torch
+    from lr2rmats_tpu_torch.diag import seed_batch
+    from lr2rmats_tpu_torch.diag.measure import cuda_ms, queued_ms
+    from lr2rmats_tpu_torch.index.seed_device import (
+        SELECT_CAP, seed_select, seed_select_reference)
+    b = seed_batch.grch38_like(SELECT_SEED)
+    args = seed_batch.args(b, dev)
+    rh = np.diff(b["hoff"])
+    rest = (seed_batch.K, 200_000, 500, 128)
+    same, left = True, {}
+    for cap in (SELECT_CAP, SELECT_SMALL_CAP):
+        widest = int(rh[rh <= cap].max())
+        meta, out = seed_select(*args, *rest, cap=cap, widest=widest)
+        pm, po = seed_select_reference(*args, *rest, cap)
+        torch.cuda.synchronize()
+        n = int(pm[:, 0].clamp(min=0).sum())
+        same &= torch.equal(meta, pm) and torch.equal(out[:n], po[:n])
+        left[cap] = int((pm[:, 0] < 0).sum())
+        if cap == SELECT_CAP:
+            kept = n
+            widest_full = widest
+    run = lambda: seed_select(*args, *rest, widest=widest_full)  # noqa: E731
+    ms = cuda_ms(run, 20)
+    queued = queued_ms(run, 20)
+    plain_ms = cuda_ms(lambda: seed_select_reference(*args, *rest,
+                                                     SELECT_CAP), 2)
+    say("kernels", f"seed_select {len(rh)} reads, {int(rh.sum())} hits "
+        f"({rh.mean():.1f} a read, widest {rh.max()}), {kept} anchors kept "
+        f"({kept / len(rh):.1f} a read); reads left to the host "
+        f"{left[SELECT_CAP]} at {SELECT_CAP} hits, "
+        f"{left[SELECT_SMALL_CAP]} at {SELECT_SMALL_CAP}: exact={same} "
+        f"kernel {ms:.4f} ms (queued {queued:.4f}), plain {plain_ms:.2f} ms")
+    if not same:
+        raise AssertionError("seed_select kernel disagrees with the plain "
+                             "version")
+    return 0.0, (ms, queued, plain_ms, seed_batch.select_bytes(b, kept), 0)
 
 
 def check_hamming_edges(codes, dev) -> bool:
@@ -1541,6 +1590,7 @@ def main(argv=None) -> int:
         aligner, reads[:1536], dev)
     ham_err, ham_t = check_hamming(genome.codes, dev)
     check_torch_ops(aligner, reads[:1536], dev)
+    select_err, select_t = check_seed_select(dev)
     say("kernels", f"phase wall {time.perf_counter() - t_phase:.1f} s")
 
     # 4. slice 1: host junctions
@@ -1752,8 +1802,12 @@ def main(argv=None) -> int:
         entry("log_probe", "log_probe.cu", "scripts/diag_chain_pallas.py:98",
               probe_err, probe_t[:5], lib_ms=probe_t[5],
               lib_queued=probe_t[6]),
+        entry("seed_select", "seed_select.cu",
+              "none: the host expansion, sort and grouping of the lookup's "
+              "hits (lr2rmats_tpu/align/batch.py _batch_anchors)",
+              select_err, select_t),
     ]
-    kernels[-1]["launch_floor_queued_ms"] = probe_t[7]
+    kernels[6]["launch_floor_queued_ms"] = probe_t[7]
     kernels[3]["replaced_reduction_ms"] = trace_red[0]
     kernels[3]["replaced_reduction_queued_ms"] = trace_red[1]
     # the junction flanks' shift DP: a second shape of the shift_dp entry

@@ -25,7 +25,10 @@ PyTorch versions (device="cpu"):
     are placed by the junction kernel (ops/junction.py junction_place),
     between the native collect and assemble passes;
   * with LR2RMATS_DEVICE_SEED=1 the index lookup runs against a
-    device-resident table (index/seed_device.py).
+    device-resident table (index/seed_device.py), and where the host
+    path's sort key fits, the hits are expanded, sorted, grouped and
+    selected there too (the seed_select kernel, `_card_anchors`): the
+    same rows as the host path, with only the kept anchors copied back.
 
 Row routing is the reference's, so the same rows chain on the card, in the
 native small-row chain and on the host: rows of at most A_BUCKETS[0]
@@ -174,6 +177,29 @@ def _pack_rows(rows: List[_Row], part, A: int, B: int):
     return qp, gp, nn
 
 
+def _rows_from_selection(meta: np.ndarray, anchors: np.ndarray
+                         ) -> List[_Row]:
+    """The rows of a device hit selection (index/seed_device.py
+    `seed_select`'s meta and kept anchors), in read, then slot (strand,
+    rank) order."""
+    m = meta[:, 1::4]
+    r_i, s_i = np.nonzero(m > 0)
+    if not len(r_i):
+        return []
+    ms = m[r_i, s_i]
+    cl = np.zeros(len(ms) + 1, np.int64)
+    np.cumsum(ms, out=cl[1:])
+    g_all = anchors >> 19
+    q_all = anchors & ((1 << 19) - 1)
+    cl = cl.tolist()
+    return [_Row(r, s // MAX_CLUSTERS_PER_STRAND, q_all[cl[j]: cl[j + 1]],
+                 g_all[cl[j]: cl[j + 1]], base, nb, qm)
+            for j, (r, s, base, nb, qm) in enumerate(zip(
+                r_i.tolist(), s_i.tolist(), meta[r_i, 2 + 4 * s_i].tolist(),
+                meta[r_i, 3 + 4 * s_i].tolist(),
+                meta[r_i, 4 + 4 * s_i].tolist()))]
+
+
 def _chain_launches() -> int:
     """The calling thread's chain kernel launches so far."""
     return (_build.thread_launches("chain_dp_backtrack") +
@@ -299,7 +325,6 @@ class BatchAligner:
                 np.concatenate(all_rid), [len(r) for r in reads])
 
     def _batch_anchors(self, reads: List[np.ndarray]) -> List[_Row]:
-        p = self.p
         idx = self.index
         h, qp, qs, rid, lens = self._batch_minimizers(reads)
         if h is None:
@@ -307,8 +332,12 @@ class BatchAligner:
         # sharded indexes expose the batch-level (possibly collective)
         # lookup separately (parallel/shard_index.py); the device lookup
         # (index/seed_device.py, LR2RMATS_DEVICE_SEED=1) slots in only
-        # for plain single-shard indexes
+        # for plain single-shard indexes, and selects the hits on the
+        # device too where its key fits (`_card_anchors`)
         look = getattr(idx, "lookup_collective", None)
+        if (look is None and self._seed_lookup is not None and
+                self._seed_lookup.selects(len(reads), max(lens))):
+            return self._card_anchors(h, qp, qs, rid, lens)
         if look is None and self._seed_lookup is not None:
             tw = self._seed_lookup
             c0, w0 = tw.thread_counts()
@@ -326,8 +355,16 @@ class BatchAligner:
         keep = cnt > 0
         if not keep.any():
             return []
-        lo, cnt = lo[keep], cnt[keep]
-        qp, qs, rid = qp[keep], qs[keep], rid[keep]
+        return self._rows_from_ranges(lo[keep], cnt[keep], qp[keep],
+                                      qs[keep], rid[keep], lens, len(reads))
+
+    def _rows_from_ranges(self, lo, cnt, qp, qs, rid, lens,
+                          n_reads: int) -> List[_Row]:
+        """The host path's rows of the queries (qp, qs, rid) with index
+        ranges lo .. lo + cnt (cnt > 0), of a batch of `n_reads` reads of
+        `lens` bases: expand, sort, group, select and subsample."""
+        p = self.p
+        idx = self.index
         # expand hit ranges + build the composite sort key.  The key fits
         # one uint64 (radix argsort ~3x faster than the 4-key lexsort)
         # when genome < 4 Gbp, batch <= 2048 reads, reads < 512 kb — all
@@ -341,7 +378,7 @@ class BatchAligner:
         # rides the radix key (the old <=2048 guard silently dropped the
         # auto-batch-3072 path to the ~3x slower 4-key lexsort)
         key_ok = (int(idx.chrom_offsets[-1]) < (1 << 32)
-                  and len(reads) <= (1 << 12)
+                  and n_reads <= (1 << 12)
                   and int(L.max(initial=0)) < (1 << 19))
         lib = get_lib()
         if lib is not None and total:
@@ -404,7 +441,7 @@ class BatchAligner:
         # top MAX_CLUSTERS_PER_STRAND clusters per (read, strand), ≥2 anchors
         g_rid = ridx[gstart[:-1]]
         g_str = strand[gstart[:-1]]
-        if len(reads) <= (1 << 12) and (not n_g or
+        if n_reads <= (1 << 12) and (not n_g or
                                         int(counts.max()) < (1 << 32)):
             key2 = ((g_rid.astype(np.uint64) << np.uint64(33)) |
                     (g_str.astype(np.uint64) << np.uint64(32)) |
@@ -465,6 +502,39 @@ class BatchAligner:
                      gs_split[j], int(bases[j]), int(n_big[j]),
                      int(q_max[j]))
                 for j, i in enumerate(np.nonzero(keep)[0])]
+
+    def _card_anchors(self, h, qp, qs, rid, lens) -> List[_Row]:
+        """The rows of `_rows_from_ranges`, with the lookup and the hit
+        selection on the device (index/seed_device.py
+        `TorchSeedLookup.select`): only the kept anchors come back.  The
+        reads whose hits overflow the device's sort take the host path
+        alone; the rows keep the order read, strand, rank.  Counts (under
+        tracing) the hits selected on the device (`hits_card`) and the
+        reads left to the host (`seed_host_reads`)."""
+        tw = self._seed_lookup
+        c0, w0 = tw.thread_counts()
+        pc = self.p.chain
+        sel = tw.select(h, qp, qs, rid, np.asarray(lens, np.int64), self.p.k,
+                        pc.max_intron, pc.max_qgap, A_BUCKETS[-1])
+        c1, w1 = tw.thread_counts()
+        self._add_stats(device_wall_s=w1 - w0, device_calls=c1 - c0,
+                        seed_lookup_calls=c1 - c0)
+        hits = int(sel.read_hits.sum())
+        host = sel.meta[:, 0] < 0
+        count("lr2rmats.align.lookup_queries", len(h))
+        count("lr2rmats.align.hits", hits)
+        count("lr2rmats.align.hits_card",
+              hits - int(sel.read_hits[host].sum()))
+        count("lr2rmats.align.seed_host_reads", int(host.sum()))
+        rows = _rows_from_selection(sel.meta, sel.anchors)
+        cnt = sel.host_hi - sel.host_lo
+        keep = cnt > 0
+        if keep.any():
+            hq = sel.host_queries[keep]
+            rows = sorted(rows + self._rows_from_ranges(
+                sel.host_lo[keep], cnt[keep], qp[hq], qs[hq], rid[hq], lens,
+                len(lens)), key=lambda r: r.read_i)
+        return rows
 
     def _chunk(self, A: int) -> int:
         """Device-chunk height for bucket A: the tuned CHAIN_CHUNK."""

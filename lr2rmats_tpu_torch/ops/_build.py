@@ -39,16 +39,17 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
 SOURCES = [os.path.join(_PKG, "csrc", name)
            for name in ("chain.cu", "shift_dp.cu", "junction.cu",
-                        "hamming.cu", "log_probe.cu")]
+                        "hamming.cu", "log_probe.cu", "seed_select.cu")]
 BUILD_DIR = os.path.join(_REPO, "build", "lr2rmats_tpu_torch")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas=-v"]
 
 # launch names; chain.cu launches both chain_dp_backtrack and chain_dp,
-# shift_dp.cu both shift_dp and polish_trace
+# shift_dp.cu both shift_dp and polish_trace; a seed_select launch is its
+# two kernels (select, compact)
 KERNELS = ("chain_dp_backtrack", "chain_dp", "shift_dp", "polish_trace",
-           "junction", "hamming", "log_probe")
+           "junction", "hamming", "log_probe", "seed_select")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 # launches of every kernel per card index
 CARD_LAUNCHES: Dict[int, int] = {}
@@ -154,6 +155,13 @@ SIGNATURES: Dict[str, List[object]] = {
         #                                     pos, C, mm
         _P],                                # stream
     "lr2_log_probe": [_P, _P, _LL, _P],     # x, y, n, stream
+    "lr2_seed_select": [
+        _P, _P, _I,                         # table, chrom_off, n_off
+        _P, _P, _P, _P, _P, _P,             # lo, cs, hoff, qoff, qpack,
+        #                                     read_len
+        _I, _I, _LL, _I, _I, _I, _I,        # B, k, max_intron, half_qgap,
+        #                                     a_max, cap, n2max
+        _P, _P, _P, _P],                    # slab, meta, out, stream
 }
 
 

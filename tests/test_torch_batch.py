@@ -202,7 +202,8 @@ def test_failing_seed_lookup_raises(monkeypatch, sim_seqset):
     def boom(h):
         raise RuntimeError("seed lookup failed on the card")
 
-    monkeypatch.setattr(port._seed_lookup, "lookup", boom)
+    # both the lookup and the selection on the card search through it
+    monkeypatch.setattr(port._seed_lookup, "_ranges", boom)
     with pytest.raises(RuntimeError, match="failed on the card"):
         port.align_seqset_packed(seqset)
     assert port._seed_lookup is not None

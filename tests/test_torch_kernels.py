@@ -1195,3 +1195,33 @@ def test_pipeline_one_process_every_card(dev, tmp_path, monkeypatch):
     log = (tmp_path / "port" / "logs" / "pipeline.log").read_text()
     assert "split over " + ", ".join(f"cuda:{i}" for i in range(n_cards)) \
         in log
+
+
+@pytest.mark.parametrize("cap, max_intron", [(None, 200_000), (6000, 200_000),
+                                             (None, 1000)])
+def test_seed_select_matches_plain(dev, cap, max_intron):
+    """The seed_select kernel against its plain version on a GRCh38-shaped
+    batch (1536 reads, ~870 queries and ~4400 hits a read): every row
+    description and kept anchor; with a budget of 6000 hits the widest
+    reads are left to the host path; with max_intron 1000 the chains
+    split into many groups."""
+    from lr2rmats_tpu_torch.diag import seed_batch
+    from lr2rmats_tpu_torch.index.seed_device import (
+        SELECT_CAP, seed_select, seed_select_reference)
+    cap = SELECT_CAP if cap is None else cap
+    b = seed_batch.grch38_like(19)
+    args = seed_batch.args(b, dev)
+    rh = np.diff(b["hoff"])
+    assert 4000 < rh.mean() < 4800 and len(rh) == 1536
+    rest = (seed_batch.K, max_intron, 500, 128)
+    before = _build.LAUNCHES["seed_select"]
+    meta, out = seed_select(*args, *rest, cap=cap,
+                            widest=int(rh[rh <= cap].max()))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["seed_select"] == before + 1
+    pm, po = seed_select_reference(*args, *rest, cap)
+    assert torch.equal(meta, pm)
+    n = int(pm[:, 0].clamp(min=0).sum())
+    assert n > 100 * int((pm[:, 0] >= 0).sum())
+    assert torch.equal(out[:n], po[:n])
+    assert bool((pm[:, 0] < 0).any()) == (cap < int(rh.max()))

@@ -130,20 +130,22 @@ def test_sam_equals_host_backend_and_jax(deployment):
 
 
 def test_spans_and_counters(deployment, monkeypatch):
-    """Off: nothing recorded.  On: one seed_lookup span a lookup, under
-    the seed span on the seed worker; hits the sum of the lookups'
-    hi - lo; anchors equal to stats["anchors"]; the SAM unchanged."""
+    """Off: nothing recorded.  On: one seed_lookup span a lookup and one
+    seed_select span a selection, under the seed span on the seed worker;
+    hits the sum of the lookups' hi - lo, all of them selected on the
+    device (hits_card); anchors equal to stats["anchors"]; the SAM
+    unchanged."""
     _, _, _, reads = deployment
     port = _aligner(deployment, True)
     seen = []
-    orig = port._seed_lookup.lookup
+    orig = port._seed_lookup._ranges
 
-    def lookup(q):
+    def ranges(q):
         lo, hi = orig(q)
         seen.append((len(q), int((hi - lo).sum())))
         return lo, hi
 
-    monkeypatch.setattr(port._seed_lookup, "lookup", lookup)
+    monkeypatch.setattr(port._seed_lookup, "_ranges", ranges)
     monkeypatch.setenv("LR2RMATS_SEED_WORKERS", "1")
     reset_spans()
     try:
@@ -154,17 +156,21 @@ def test_spans_and_counters(deployment, monkeypatch):
         with tracing():
             on = port.align_seqset_packed(reads, BATCH).emit_sam(port.refs)
         assert on == off
-        ctr = {k: counter_totals()["lr2rmats.align." + k] for k in COUNTERS}
+        ctr = {k: counter_totals()["lr2rmats.align." + k]
+               for k in COUNTERS + ("hits_card", "seed_host_reads")}
         recs = {r["id"]: r for r in span_records()}
         looks = [r for r in recs.values()
                  if r["name"] == "lr2rmats.align.seed_lookup"]
+        selects = [r for r in recs.values()
+                   if r["name"] == "lr2rmats.align.seed_select"]
     finally:
         reset_spans()
         port.close()
-    assert len(looks) == len(seen) == 3
-    for r in looks:
+    assert len(looks) == len(selects) == len(seen) == 3
+    for r in looks + selects:
         assert recs[r["parent"]]["name"] == "lr2rmats.align.seed"
         assert r["call"] == recs[r["parent"]]["call"]
+    assert ctr["hits_card"] == ctr["hits"] and ctr["seed_host_reads"] == 0
     assert ctr["lookup_queries"] == sum(n for n, _ in seen)
     assert ctr["hits"] == sum(h for _, h in seen) > ctr["lookup_queries"]
     assert ctr["anchors"] == port.stats["anchors"] > 0
