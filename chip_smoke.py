@@ -75,9 +75,7 @@ exits non-zero):
      (B=256) and A=4096 (B=32), and against the fused kernel's f / parent
      where A <= 512; the log probe against its plain version, bit for bit;
      the chain-parity diagnostic (python -m
-     lr2rmats_tpu_torch.diag.chain_parity) on the card; the bench workload
-     through TorchBatchAligner(backend="pallas") (every row through
-     chain_dp, host backtrack), SAM identical to the host backend; the mesh
+     lr2rmats_tpu_torch.diag.chain_parity) on the card; the mesh
      step at 8 hits per seed (1024 anchors per read) against the plain
      step, exact; and the bench workload with devices=[cuda:0, cuda:0],
      identical to the unsplit run (on one card this exercises the row
@@ -1428,14 +1426,6 @@ def run_diag(dev):
     return launches
 
 
-def widest_row(al, reads):
-    """Anchors of the widest row backend="pallas" chains on `reads`."""
-    from lr2rmats_tpu_torch.align.batch import DEFAULT_BATCH
-    return max(int(nn.max()) for off in range(0, len(reads), DEFAULT_BATCH)
-               for _, _, _, nn in al._prepare_dispatch(al._batch_anchors(
-                   reads[off: off + DEFAULT_BATCH]))["dp"])
-
-
 def run_entry_points(here, dev):
     """9: the measurement entry points' functions at reduced sizes, each
     with its own guard; returns the launches of each run and of each
@@ -1708,31 +1698,11 @@ def main(argv=None) -> int:
                                             names, reads, args.reads, card))
     say("multi", f"phase wall {time.perf_counter() - t_phase:.1f} s")
 
-    # 8. DP-only chain kernel, diagnostic, backend="pallas", split
+    # 8. DP-only chain kernel, diagnostic, wide mesh step, split
     t_phase = time.perf_counter()
     dp_err, dp_t = check_chain_dp(aligner, reads[:1536], mesh_rows, dev)
     probe_err, probe_t = check_log_probe(dev)
     path_launches.append(run_diag(dev))
-    al_p = TorchBatchAligner(genome, index=aligner.index, device="cuda",
-                             junction_backend="host", seed_lookup=False,
-                             backend="pallas")
-    al_p.warmup_chain_shapes()
-    al_p.align_batch(names[:64], reads[:64])
-    _, _, wall_p, launches_p, kernel_ms_p, st_p, _ = align_slice(
-        "slice pallas", al_p, seqset, sam_ref, dev)
-    if not (launches_p["chain_dp"] and launches_p["shift_dp"]) or \
-            launches_p["chain_dp_backtrack"]:
-        raise AssertionError(f"backend=pallas launches {launches_p}")
-    path_launches.append(launches_p)
-    say("pallas", json.dumps({
-        "reads": len(reads), "wall_s": wall_p,
-        "reads_per_s": len(reads) / wall_p,
-        "sam_identical_to_host_backend": True,
-        "widest_row_anchors": widest_row(al_p, reads),
-        "launches": launches_p, "kernel_ms": kernel_ms_p,
-        "host_phases_s": {k[:-2]: st_p.get(k, 0.0) for k in
-                          ("seed_s", "dispatch_s", "build_s", "polish_s")},
-        "card": card}))
     wide_launches, wide_err, _, _ = check_mesh_step(
         aligner, reads[:MESH_READS], dev, card, MESH_H_WIDE)
     path_launches.append(wide_launches)

@@ -16,8 +16,7 @@ hand-written CUDA kernels and torch ops (device="cuda") or as their plain
 PyTorch versions (device="cpu"):
 
   * the chain dispatch runs the fused chain DP + backtrack kernel
-    (ops/chain.py `chain_dp_backtrack`), or with backend="pallas" the
-    DP-only kernel at any row width (`chain_dp`) and the host backtrack;
+    (ops/chain.py `chain_dp_backtrack`);
   * the junction polish runs its placement DP on the shift-DP kernel
     (align/polish.py);
   * with the device junction backend (`junction_backend="device"`, or
@@ -35,10 +34,6 @@ native small-row chain and on the host: rows of at most A_BUCKETS[0]
 anchors chain natively; rows over A_BUCKETS[-1] anchors, with more than
 EXC_ROWS reference deltas >= 2^16, or with query positions >= 2^16 chain on
 the host; the rest go to the card in fixed CHAIN_CHUNK chunks per bucket.
-backend="pallas" mirrors the reference's backend of that name: every row,
-in chunks of PALLAS_CHUNK rows at the next power of two of the chunk's
-widest row, goes to the DP-only kernel, and align/chain.py `backtrack` runs
-on each row's f / parent in float64.
 
 With several `devices` (cards of this process) each chain launch is split
 into contiguous row blocks, one per card, as the reference shards its
@@ -46,8 +41,10 @@ chain dispatch over its local devices (ops/chain.py `split_rows`); the
 outputs are the same.  Seeding lookups, junctions and polish run on
 `device`.
 
-Left out with respect to the reference, which needed them only to survive
-a remote TPU link: its JAX backends, the weather router, the
+Left out with respect to the reference: its "pallas" chain backend (every
+row on the DP-only kernel, then a host backtrack; the same SAM, and slower
+on the card), and, as the reference needed them only to survive a remote
+TPU link, its JAX backends, the weather router, the
 device-failure fallbacks (a failing device path raises), the u16/delta
 packing of the chain input and the auto-batch doubling.  The device
 junction backend needs the native library and raises without it.
@@ -68,14 +65,13 @@ import torch
 
 from ..device import resolve_device
 from ..index.minimizer import MinimizerIndex, extract_minimizers
-from ..index.seed_device import TorchSeedLookup
+from ..index.seed_device import MAX_CLUSTERS_PER_STRAND, TorchSeedLookup
 from ..io.fasta import Genome, SeqSet, decode_seq, revcomp
 from ..io.sam import FREVERSE, FSECONDARY, OP_N, OP_S, AlnRec
 from ..native import get_lib
 from ..ops import _build
-from ..ops.chain import (DP_MIN_ROWS, FUSED_MIN_ROWS, chain_dp,
-                         chain_dp_backtrack, chain_params_for_kernel,
-                         gather_rows, launch_rows)
+from ..ops.chain import (FUSED_MIN_ROWS, chain_dp_backtrack,
+                         chain_params_for_kernel, gather_rows, launch_rows)
 from ..ops.junction import (B_DEF as JUNCTION_BAND, MGAP, cell_ops,
                             junction_batch, junction_place,
                             prepare_junction_batch)
@@ -111,7 +107,6 @@ def _scaled_chunk(v: int) -> int:
 
 CHAIN_CHUNK = {8: _scaled_chunk(2048), 64: _scaled_chunk(320),
                128: _scaled_chunk(1664)}
-MAX_CLUSTERS_PER_STRAND = 4
 # Rows with more oversized (>= 2^16) reference deltas than this chain on the
 # host, as in the reference, whose packed chain buffer has EXC_ROWS
 # exception slots per row (lr2rmats_tpu/ops/chain_jax.py:122).  The port's
@@ -124,9 +119,6 @@ EXC_ROWS = 8
 _JUNCTION_ENV = ("1", "scan", "pallas")
 # junction slots per candidate of the native collect pass
 _GSTRIDE = 64
-# rows per DP-only chain launch of backend="pallas" (reference batch.py:882)
-PALLAS_CHUNK = 512
-BACKENDS = ("torch", "pallas")
 
 
 def _survivor_ranks(rid_kept: np.ndarray):
@@ -177,33 +169,15 @@ def _pack_rows(rows: List[_Row], part, A: int, B: int):
     return qp, gp, nn
 
 
-def _rows_from_selection(meta: np.ndarray, anchors: np.ndarray
-                         ) -> List[_Row]:
-    """The rows of a device hit selection (index/seed_device.py
-    `seed_select`'s meta and kept anchors), in read, then slot (strand,
-    rank) order."""
-    m = meta[:, 1::4]
-    r_i, s_i = np.nonzero(m > 0)
-    if not len(r_i):
-        return []
-    ms = m[r_i, s_i]
-    cl = np.zeros(len(ms) + 1, np.int64)
-    np.cumsum(ms, out=cl[1:])
-    g_all = anchors >> 19
-    q_all = anchors & ((1 << 19) - 1)
-    cl = cl.tolist()
-    return [_Row(r, s // MAX_CLUSTERS_PER_STRAND, q_all[cl[j]: cl[j + 1]],
-                 g_all[cl[j]: cl[j + 1]], base, nb, qm)
-            for j, (r, s, base, nb, qm) in enumerate(zip(
-                r_i.tolist(), s_i.tolist(), meta[r_i, 2 + 4 * s_i].tolist(),
-                meta[r_i, 3 + 4 * s_i].tolist(),
-                meta[r_i, 4 + 4 * s_i].tolist()))]
-
-
-def _chain_launches() -> int:
-    """The calling thread's chain kernel launches so far."""
-    return (_build.thread_launches("chain_dp_backtrack") +
-            _build.thread_launches("chain_dp"))
+def _rows(read, strand, base, n_big, q_max, offs, q, g) -> List[_Row]:
+    """_Rows from columns: row j is read[j]'s on strand[j], its anchors
+    q, g [offs[j]:offs[j + 1]] (plain slices: np.split's wrapper costs ~10
+    us a row)."""
+    o = offs.tolist()
+    return [_Row(r, s, q[o[j]: o[j + 1]], g[o[j]: o[j + 1]], b, nb, qm)
+            for j, (r, s, b, nb, qm) in enumerate(zip(
+                read.tolist(), strand.tolist(), base.tolist(),
+                n_big.tolist(), q_max.tolist()))]
 
 
 def _decode(out, part, nn, A, mask, ps, ss) -> None:
@@ -481,12 +455,6 @@ class BatchAligner:
         src = starts[rowrep] + within * (n_i[rowrep] - 1) // (m_i[rowrep] - 1)
         q_all = qfinal[src]
         g_all = gp[src]
-        # plain slices: np.split's array_split wrapper costs ~10 us/row in
-        # swapaxes/wrapping (0.47 s per 8 batches at 500k scale)
-        cl = cum.tolist()
-        qs_split = [q_all[cl[j]: cl[j + 1]] for j in range(len(sel))]
-        gs_split = [g_all[cl[j]: cl[j + 1]] for j in range(len(sel))]
-        bases = gp[starts]
         # oversized-delta counts per row, vectorized (the per-row np.diff
         # in the dispatch router cost ~0.09 ms/row)
         if cum[-1] > 1:
@@ -498,10 +466,8 @@ class BatchAligner:
             n_big = np.zeros(len(sel), np.int64)
         q_max = (np.maximum.reduceat(q_all, np.minimum(cum[:-1], cum[-1] - 1))
                  if cum[-1] else np.zeros(len(sel), np.int64))
-        return [_Row(int(g_rid[og[i]]), int(g_str[og[i]]), qs_split[j],
-                     gs_split[j], int(bases[j]), int(n_big[j]),
-                     int(q_max[j]))
-                for j, i in enumerate(np.nonzero(keep)[0])]
+        return _rows(g_rid[sel], g_str[sel], gp[starts], n_big, q_max, cum,
+                     q_all, g_all)
 
     def _card_anchors(self, h, qp, qs, rid, lens) -> List[_Row]:
         """The rows of `_rows_from_ranges`, with the lookup and the hit
@@ -526,7 +492,7 @@ class BatchAligner:
         count("lr2rmats.align.hits_card",
               hits - int(sel.read_hits[host].sum()))
         count("lr2rmats.align.seed_host_reads", int(host.sum()))
-        rows = _rows_from_selection(sel.meta, sel.anchors)
+        rows = _rows(*sel.rows())
         cnt = sel.host_hi - sel.host_lo
         keep = cnt > 0
         if keep.any():
@@ -599,7 +565,7 @@ class BatchAligner:
 
     @staticmethod
     def _apply_survivor_ranks(out, mapq_primary):
-        """Scalar twin of _survivor_ranks for the AlnRec build paths:
+        """Scalar twin of _survivor_ranks for `_extend_read`:
         `out` is one read's surviving records in candidate-rank order —
         the first survivor becomes the primary."""
         for si, r in enumerate(out):
@@ -627,7 +593,8 @@ class BatchAligner:
     @staticmethod
     def _collect_candidates(rows, chained):
         """Per-read candidate chains (score, strand, q, g) — shared by the
-        packed and AlnRec build paths, which must stay bit-identical."""
+        native packed builder and the python `_extend_read`, which must
+        stay bit-identical."""
         per_read: Dict[int, List[Tuple[float, int, np.ndarray, np.ndarray]]] = {}
         for r, ch in zip(rows, chained):
             pri, ps, sec, ss = ch
@@ -641,9 +608,17 @@ class BatchAligner:
 
     def _build_records(self, names, reads, rows, chained,
                        per_read=None) -> List[AlnRec]:
+        """The batch's records as AlnRecs: with the native library and
+        more than 8 reads, `_build_packed`'s records; otherwise one python
+        extension a read."""
         p = self.p
         if per_read is None:
             per_read = self._collect_candidates(rows, chained)
+        order = sorted(per_read)
+        if get_lib() is not None and len(order) > 8:
+            return self._build_packed(names, reads, rows, chained,
+                                      per_read).to_alnrecs()
+
         def _extend_read(ri):
             cands = sorted(per_read[ri], key=lambda c: -c[0])[:2]
             codes = reads[ri]
@@ -673,11 +648,6 @@ class BatchAligner:
                     mapq_from_scores(cands[0][0], cands[1][0]))
             return self._apply_survivor_ranks(out, mapq)
 
-        order = sorted(per_read)
-        lib = get_lib()
-        if lib is not None and len(order) > 8:
-            return self._build_records_native(lib, names, reads, per_read,
-                                              order)
         if self.n_threads > 1 and len(order) > 8:
             if self._pool is None:
                 with self._pool_lock:   # two build workers can race here
@@ -761,20 +731,13 @@ class BatchAligner:
                    vote_out, rc_out)
         return packed, ext
 
-    def _build_records_native(self, lib, names, reads, per_read, order
-                              ) -> List[AlnRec]:
-        res = self._extend_candidates_native(lib, reads, per_read, order)
-        if res is None:
-            return []
-        packed, ext = res
-        return self._records_from_extension(names, reads, packed[1],
-                                            packed[0], ext)
-
-    def _build_packed(self, names, reads, rows, chained):
+    def _build_packed(self, names, reads, rows, chained, per_read=None):
         """RecordBatch (struct-of-arrays) result for the batch — the
-        production path; AlnRec assembly (`_build_records`) is the legacy
-        bridge on top."""
-        per_read = self._collect_candidates(rows, chained)
+        production path; `_build_records` gives its records as AlnRecs,
+        and is its fallback without the native library or with at most 8
+        reads."""
+        if per_read is None:
+            per_read = self._collect_candidates(rows, chained)
         order = sorted(per_read)
         lib = get_lib()
         if lib is None and self.junction_backend == "device":
@@ -799,11 +762,9 @@ class BatchAligner:
                                reads_concat, read_offs, cand_read,
                                cand_strand, ext):
         """Vectorized RecordBatch assembly from the batch extension
-        outputs — the per-record python of `_records_from_extension`
-        (~70 us/record measured) collapses to array ops; only the rare
-        native-refused (rc != 0) and terminal-rescue candidates take the
-        per-record path.  Bit-identical output is tested against the
-        AlnRec reference path."""
+        outputs: only the rare native-refused (rc != 0) and terminal-rescue
+        candidates take a per-record path.  Bit-identical output is tested
+        against the reference's records."""
         p = self.p
         (stride, pos_out, ops_out, n_ops, ed_out, nm_out, vote_out,
          rc_out) = ext
@@ -912,7 +873,7 @@ class BatchAligner:
                 np.zeros(0, np.int8), np.zeros(0, np.int64),
                 np.zeros(0, np.int64), np.zeros(0, np.int32),
                 np.zeros(0, np.int8))
-        # vectorized CIGARs (drop zero-length ops, like the AlnRec path)
+        # vectorized CIGARs (drop zero-length ops, like `_extend_read`)
         emit_f = opl_f > 0
         vec_counts = np.bincount(rowrep[emit_f], minlength=n
                                  ).astype(np.int64)
@@ -974,66 +935,6 @@ class BatchAligner:
             cig_buf, cig_offs, reads_concat, read_offs,
             cand_read[kept].astype(np.int32), strand,
             ed[kept], (2 * nmatch[kept] - 4 * ed[kept]), nh, xs)
-
-    def _records_from_extension(self, names, reads, flat, cands_by_read,
-                                ext) -> List[AlnRec]:
-        p = self.p
-        (stride, pos_out, ops_out, n_ops, ed_out, nm_out, vote_out,
-         rc_out) = ext
-        recs: List[AlnRec] = []
-        MIN_RESCUE = p.k + p.w + 4
-
-        cur_ri = None
-        cur_out: List[AlnRec] = []
-
-        def _flush():
-            if cur_ri is None or not cur_out:
-                return
-            cands = cands_by_read[cur_ri]
-            mapq = (MAPQ_UNIQUE if len(cands) == 1 else
-                    mapq_from_scores(cands[0][0], cands[1][0]))
-            recs.extend(self._apply_survivor_ranks(cur_out, mapq))
-
-        for i, (ri, rank) in enumerate(flat):
-            if ri != cur_ri:
-                _flush()
-                cur_ri, cur_out = ri, []
-            cands = cands_by_read[ri]
-            score, s, cq, cg = cands[rank]
-            codes = reads[ri]
-            seq_codes = revcomp(codes) if s == 1 else codes
-            if rc_out[i] != 0:
-                res = self.inner._extend(seq_codes, cq, cg)
-            else:
-                base = i * 2 * stride
-                no = int(n_ops[i])
-                ops = [(int(ops_out[base + 2 * t]),
-                        int(ops_out[base + 2 * t + 1])) for t in range(no)]
-                res = (int(pos_out[i]), ops, int(ed_out[i]), int(nm_out[i]),
-                       int(vote_out[i]))
-                # terminal-exon rescue only when a big clip survived
-                if ops and ((ops[0][0] == OP_S and ops[0][1] >= MIN_RESCUE) or
-                            (ops[-1][0] == OP_S and
-                             ops[-1][1] >= MIN_RESCUE)):
-                    res = self.inner._rescue_terminal_exons(seq_codes, res)
-            pos_g, ops, ed, nmatch, vote = res
-            if nmatch < p.min_score:
-                continue
-            tid, pos = self.index.global_to_chrom(np.array([pos_g]))
-            tid, pos = int(tid[0]), int(pos[0])
-            flag = (FREVERSE if s == 1 else 0) | (FSECONDARY if rank else 0)
-            cigar = np.array([(l << 4) | op for op, l in ops if l > 0],
-                             np.uint32)
-            tags = {"NM": ed, "AS": int(2 * nmatch - 4 * ed),
-                    "NH": len(cands)}
-            if vote != 0 and any(op == OP_N for op, _ in ops):
-                tags["XS"] = "+" if vote > 0 else "-"
-            cur_out.append(AlnRec(
-                qname=names[ri], flag=flag, tid=tid, pos=pos,
-                mapq=0, cigar=cigar,
-                seq=decode_seq(seq_codes), qual="*", tags=tags))
-        _flush()
-        return recs
 
     def dispatch_batch(self, names: Sequence[str], reads: List[np.ndarray]):
         """Phase 1: seeding + async chain dispatch; returns a handle (the
@@ -1117,11 +1018,8 @@ class BatchAligner:
         build_futs = []
         n_build = int(os.environ.get("LR2RMATS_BUILD_WORKERS", "1"))
         # the device junction build makes card calls on its build worker;
-        # it keeps to one worker, as the reference's does (the "pallas"
-        # backend and the host aligner take any number)
-        device_junc = (self.backend not in ("host", "pallas") and
-                       self.junction_backend == "device")
-        if n_build > 1 and device_junc:
+        # it keeps to one worker, as the reference's does
+        if n_build > 1 and self.junction_backend == "device":
             log("align", "LR2RMATS_BUILD_WORKERS>1 ignored: "
                 "the device junction backend builds on one worker")
             n_build = 1
@@ -1197,14 +1095,12 @@ class TorchBatchAligner(BatchAligner):
         without it); None reads LR2RMATS_DEVICE_JUNCTIONS.
         seed_lookup: index lookup on the device (when the index supports
         it); None reads LR2RMATS_DEVICE_SEED=1.
-        backend: "torch" (the fused chain kernel in the reference's row
-        routing) or "pallas" (every row through the DP-only kernel, host
-        backtrack).
+        backend: "torch", the one chain dispatch (the fused chain kernel in
+        the reference's row routing); any other value raises.
         devices: the devices each chain launch is split over; default
         [device]."""
-        if backend not in BACKENDS:
-            raise ValueError(f"backend must be one of {BACKENDS}, got "
-                             f"{backend!r}")
+        if backend != "torch":
+            raise ValueError(f"backend must be 'torch', got {backend!r}")
         if junction_backend is None:
             junction_backend = (
                 "device" if os.environ.get("LR2RMATS_DEVICE_JUNCTIONS")
@@ -1247,22 +1143,20 @@ class TorchBatchAligner(BatchAligner):
         port's Genome, AlignParams / ChainParams and MinimizerIndex (or
         sharded index) are made from `al`'s fields and share its numpy
         arrays, without importing the reference package.  It takes `al`'s
-        junction backend, its choice of device seed lookup and its chain
-        backend ("pallas" stays "pallas"; "jax" and "host" take the port's
-        default fused kernel)."""
+        junction backend and its choice of device seed lookup; every chain
+        backend of the reference ("jax", "pallas", "host") takes the
+        port's one chain dispatch, which gives the same SAM."""
         return cls(_port_genome(al.inner.genome), params=_port_params(al.p),
                    index=_port_index(al.index), device=device,
                    n_threads=al.n_threads,
                    junction_backend=al.junction_backend,
                    seed_lookup=al._seed_lookup is not None,
-                   backend="pallas" if al.backend == "pallas" else "torch",
                    devices=devices)
 
     # ------------------------------------------------------------ chaining
     def _prepare_dispatch(self, rows: List[_Row]):
         """Host side of the chain dispatch: route rows, chain the small
-        bucket natively, pack the fixed device chunks (backend="pallas":
-        pack every row into PALLAS_CHUNK-row chunks).  Numpy/C only, so it
+        bucket natively, pack the fixed device chunks.  Numpy/C only, so it
         runs on the seed worker.  Counts (under tracing) the chain rows,
         their anchors (as stats["anchors"] will) and the anchors of the
         rows routed to the host chain."""
@@ -1270,14 +1164,6 @@ class TorchBatchAligner(BatchAligner):
         lens = np.fromiter((len(r.qpos) for r in rows), np.int64, n_rows)
         count("lr2rmats.align.rows", n_rows)
         count("lr2rmats.align.anchors", int(lens.sum()))
-        if self.backend == "pallas":
-            dp = []
-            for off in range(0, len(rows), PALLAS_CHUNK):
-                part = range(off, min(off + PALLAS_CHUNK, len(rows)))
-                widest = max(len(rows[i].qpos) for i in part)
-                A = max(A_BUCKETS[0], 1 << (widest - 1).bit_length())
-                dp.append((off, *_pack_rows(rows, part, A, len(part))))
-            return dict(pre=[], chunks=[], host_rows=[], dp=dp)
         a_cap = A_BUCKETS[-1]
         nbig = np.fromiter((r.n_big for r in rows), np.int64, n_rows)
         qmx = np.fromiter((r.q_max for r in rows), np.int64, n_rows)
@@ -1316,7 +1202,7 @@ class TorchBatchAligner(BatchAligner):
             for off in range(0, len(members), C):
                 part = members[off: off + C]
                 chunks.append((part, A, *_pack_rows(rows, part, A, C)))
-        return dict(pre=pending, chunks=chunks, host_rows=host_rows, dp=[])
+        return dict(pre=pending, chunks=chunks, host_rows=host_rows)
 
     def _chain_rows_async(self, rows: List[_Row], prep=None):
         """Launch the chain kernel on every device chunk, split over the
@@ -1326,17 +1212,14 @@ class TorchBatchAligner(BatchAligner):
             prep = self._prepare_dispatch(rows)
         pending = list(prep["pre"])
         kp = chain_params_for_kernel(self.p.chain)
-        n0 = _chain_launches()
+        n0 = _build.thread_launches("chain_dp_backtrack")
         for part, A, qp, gp, nn in prep["chunks"]:
             res = launch_rows(chain_dp_backtrack, (qp, gp, nn), self.devices,
                               FUSED_MIN_ROWS, kp, self.p.min_score)
             pending.append(("device", part, nn, A, res))
-        for off, qp, gp, nn in prep["dp"]:
-            res = launch_rows(chain_dp, (qp, gp, nn), self.devices,
-                              DP_MIN_ROWS, kp)
-            pending.append(("dp", off, nn, res))
-        self._add_stats(device_calls=len(prep["chunks"]) + len(prep["dp"]),
-                        chain_kernel_launches=_chain_launches() - n0)
+        self._add_stats(device_calls=len(prep["chunks"]),
+                        chain_kernel_launches=(
+                            _build.thread_launches("chain_dp_backtrack") - n0))
         if prep["host_rows"]:
             pending.append(("hostrows", prep["host_rows"]))
         return pending
@@ -1353,17 +1236,6 @@ class TorchBatchAligner(BatchAligner):
                     out[i] = backtrack(f, parent, self.p.min_score)
                 self._add_stats(anchors=sum(len(rows[i].qpos)
                                             for i in entry[1]))
-                continue
-            if kind == "dp":
-                _, off, nn, res = entry
-                t0 = time.perf_counter()
-                f, parent = gather_rows(res)
-                self._add_stats(device_wall_s=time.perf_counter() - t0,
-                                anchors=int(np.sum(nn)))
-                for bi, n in enumerate(nn.tolist()):
-                    out[off + bi] = backtrack(
-                        f[bi, :n].astype(np.float64),
-                        parent[bi, :n].astype(np.int64), self.p.min_score)
                 continue
             _, part, nn, A, res = entry
             if kind == "device":
@@ -1446,8 +1318,7 @@ class TorchBatchAligner(BatchAligner):
         dev_ln = np.zeros(n_out, np.int32)
         dev_rn = np.zeros(n_out, np.int32)
         if n_dev:
-            # this thread's launches: several build workers (backend
-            # "pallas") can launch the junction kernel at once
+            # this thread's launches, whatever other threads launch
             n0 = _build.thread_launches("junction")
             batch = prepare_junction_batch(ref, gaps, B)
             score, bj, bcl, bcr, vote, found = junction_batch(
@@ -1496,9 +1367,8 @@ class TorchBatchAligner(BatchAligner):
 
     def warmup_chain_shapes(self) -> None:
         """Build the kernels and launch each production shape once on every
-        device (every chain bucket chunk, or one DP-only chunk for
-        backend="pallas"; the polish placement's two shift DPs and its
-        traceback, and the junction kernel),
+        device (every chain bucket chunk; the polish placement's two shift
+        DPs and its traceback, and the junction kernel),
         so neither the nvcc build nor a first launch lands
         inside a timed region.  No-op on the CPU."""
         if self.device.type != "cuda":
@@ -1506,21 +1376,13 @@ class TorchBatchAligner(BatchAligner):
         _build.load()
         kp = chain_params_for_kernel(self.p.chain)
         dev = self.device
-        if self.backend == "pallas":
-            shapes = [(PALLAS_CHUNK, A_BUCKETS[-1])]
-        else:
-            shapes = [(self._chunk(A), A) for A in
-                      (A_BUCKETS[1:] if get_lib() is not None else A_BUCKETS)]
-        for B, A in shapes:
+        for A in A_BUCKETS[1:] if get_lib() is not None else A_BUCKETS:
+            B = self._chunk(A)
             qp = np.zeros((B, A), np.int32)
             qp[:, 1] = 1
             nn = np.full(B, 2, np.int32)
-            if self.backend == "pallas":
-                launch_rows(chain_dp, (qp, qp, nn), self.devices,
-                            DP_MIN_ROWS, kp)
-            else:
-                launch_rows(chain_dp_backtrack, (qp, qp, nn), self.devices,
-                            FUSED_MIN_ROWS, kp, self.p.min_score)
+            launch_rows(chain_dp_backtrack, (qp, qp, nn), self.devices,
+                        FUSED_MIN_ROWS, kp, self.p.min_score)
         q = torch.zeros((_PLACE_M, _PLACE_G), dtype=torch.int8, device=dev)
         win = torch.zeros((_PLACE_M + POLISH_BAND, _PLACE_G),
                           dtype=torch.int8, device=dev)

@@ -48,10 +48,11 @@ _PAD = (1 << 31) - 1      # above every 2k-bit hash: lo == hi == n
 # the most hits of one read the card sorts: 2^14 int64 keys, 128 KB of a
 # block's shared memory
 SELECT_CAP = 1 << 14
-# groups kept a strand (align/batch.py MAX_CLUSTERS_PER_STRAND) and the
-# per-read row slots of `meta`: kept, then (m, base, n_big, q_max) a slot
-_PER_STRAND = 4
-META = 1 + 4 * 2 * _PER_STRAND
+# groups kept a strand, on the card and on the host path of align/batch.py
+# (csrc/seed_select.cu kPer), and the per-read row slots of `meta`: kept,
+# then (m, base, n_big, q_max) a slot
+MAX_CLUSTERS_PER_STRAND = 4
+META = 1 + 4 * 2 * MAX_CLUSTERS_PER_STRAND
 _QMASK = (1 << 19) - 1
 _ANCHOR_MASK = (1 << 51) - 1
 # table entries packed a chunk at set-up
@@ -118,11 +119,11 @@ def seed_select_reference(table, chrom_off, lo, cs, hoff, qoff, qpack,
     newkey[1:] = (gr[1:] != gr[:-1]) | (gs2[1:] != gs2[:-1])
     kid = torch.cumsum(newkey, 0) - 1
     rank = torch.arange(n_g, device=dev) - torch.nonzero(newkey)[:, 0][kid]
-    keep = (rank < _PER_STRAND) & (counts[og] >= 2)
+    keep = (rank < MAX_CLUSTERS_PER_STRAND) & (counts[og] >= 2)
     sel = og[keep]
     if not sel.numel():
         return meta, out
-    slot = g_st[sel] * _PER_STRAND + rank[keep]
+    slot = g_st[sel] * MAX_CLUSTERS_PER_STRAND + rank[keep]
     n_i, starts = counts[sel], gstart[sel]
     qmx = torch.zeros(n_g, **i64).scatter_reduce(0, gid, q, "amax",
                                                  include_self=False)
@@ -235,6 +236,21 @@ class Selection:
     host_queries: np.ndarray
     host_lo: np.ndarray
     host_hi: np.ndarray
+
+    def rows(self):
+        """The kept rows' columns, in read, then slot (strand, rank) order:
+        read, strand, base, n_big, q_max [R] and offs [R + 1] (int64), and
+        the anchors' query and global positions q, g, row j's at
+        offs[j]:offs[j + 1]."""
+        m = self.meta[:, 1::4]
+        read, slot = np.nonzero(m > 0)
+        offs = np.zeros(len(read) + 1, np.int64)
+        np.cumsum(m[read, slot], out=offs[1:])
+        col = 1 + 4 * slot
+        return (read, slot // MAX_CLUSTERS_PER_STRAND,
+                self.meta[read, col + 1], self.meta[read, col + 2],
+                self.meta[read, col + 3], offs, self.anchors & _QMASK,
+                self.anchors >> 19)
 
 
 class TorchSeedLookup:

@@ -12,7 +12,7 @@ which replaces both its lax.scan and Pallas backends);
 `_junction_scan`: `shift_dp_reference` for each flank, then
 `combine_reference` (the reference's `_combine`).  All scores are integers
 or multiples of 3/8, so float32 is exact and the kernel equals the plain
-version bit for bit.  `combine` alone runs on the CPU only.
+version bit for bit.
 
 The host halves are numpy copies of the reference's (its module imports
 jax): `prepare_junction_batch` packs the gaps into lanes, `recover_ops`
@@ -205,43 +205,6 @@ def _check(name: str, got: dict, want: dict) -> torch.device:
     return devs.pop()
 
 
-def _class_shapes(M1: int, B: int, G: int) -> dict:
-    return {"m": ((G,), torch.int32), "span": ((G,), torch.int64),
-            "el": ((G,), torch.int32), "er": ((G,), torch.int32),
-            "dok": ((M1 + 2 * B, G), torch.int8),
-            "aok": ((M1 + 2 * B, G), torch.int8)}
-
-
-def combine(SL, SR, m, span, dok, aok, el, er, B: int, min_intron: int):
-    """Best (j, cl, cr) per gap from the two flank DPs, on the CPU.
-
-    SL, SR [M+1, 2B+1, G] float32; m, el, er [G] int32; span [G] int64;
-    dok, aok [M+2B+1, G] int8.  Returns (score f32, j, cl, cr, vote int32,
-    found bool), each [G].  On the card the flanks and the combine are one
-    kernel, `junction_place`: CUDA tensors raise here."""
-    if B != B_DEF:
-        raise ValueError(f"combine: band must be {B_DEF}, got {B}")
-    if SL.dim() != 3 or SL.shape != SR.shape:
-        raise ValueError(f"SL / SR must both be [M+1, W, G], got "
-                         f"{tuple(SL.shape)} / {tuple(SR.shape)}")
-    M1, W, G = SL.shape
-    if W != 2 * B + 1:
-        raise ValueError(f"SL has {W} shifts, band {B} needs {2 * B + 1}")
-    if SL.dtype != torch.float32 or SR.dtype != torch.float32:
-        raise TypeError("combine: SL / SR must be float32")
-    dev = _check("combine", {"SL": SL, "SR": SR, "m": m, "span": span,
-                             "dok": dok, "aok": aok, "el": el, "er": er},
-                 {"SL": ((M1, W, G), torch.float32),
-                  "SR": ((M1, W, G), torch.float32),
-                  **_class_shapes(M1, B, G)})
-    if dev.type != "cpu":
-        raise ValueError(f"combine: runs on the CPU only, got {dev}; on the "
-                         "card call junction_place, which runs the flank "
-                         "DPs and the combine in one kernel")
-    return combine_reference(SL, SR, m, span, dok, aok, el, er, B,
-                             min_intron)
-
-
 def junction_place_reference(q, qr, lwin, rwin, m, span, dok, aok, el, er,
                              B: int, min_intron: int):
     """Plain PyTorch version of the junction kernel, step for step the
@@ -275,7 +238,10 @@ def junction_place(q, qr, lwin, rwin, m, span, dok, aok, el, er, B: int,
                  {"q": ((M, G), torch.int32), "qr": ((M, G), torch.int32),
                   "lwin": ((M + B, G), torch.int32),
                   "rwin": ((M + B, G), torch.int32),
-                  **_class_shapes(M + 1, B, G)})
+                  "m": ((G,), torch.int32), "span": ((G,), torch.int64),
+                  "el": ((G,), torch.int32), "er": ((G,), torch.int32),
+                  "dok": ((M + 1 + 2 * B, G), torch.int8),
+                  "aok": ((M + 1 + 2 * B, G), torch.int8)})
     if dev.type == "cpu":
         return junction_place_reference(q, qr, lwin, rwin, m, span, dok, aok,
                                         el, er, B, min_intron)

@@ -1,15 +1,15 @@
-"""TorchBatchAligner's chain backends and its row split over devices,
+"""TorchBatchAligner's one chain dispatch and its row split over devices,
 against the JAX reference, on the CPU (the kernels' plain versions).
 
-backend="pallas" is the reference's BatchAligner(backend="pallas") path:
-every row through the DP-only chain (ops/chain.py `chain_dp`) and the host
-float64 backtrack.  The workload is tests/test_batch_aligner.py's
-test_pallas_backend_matches plus one 165 kb unspliced read whose anchor row
-is wider than the fused kernel's 512 anchors.  Primaries' cigar and
-position and the SAM bytes must equal BatchAligner(backend="jax") and the
-port's default backend exactly.  devices=[cpu, cpu] splits every chain
-launch into two row blocks and must give the SAM of devices=[cpu], and,
-through run_pipeline, the reference host pipeline's files.
+The workload is tests/test_batch_aligner.py's test_pallas_backend_matches
+plus one 165 kb unspliced read whose anchor row is wider than the fused
+kernel's 512 anchors: it chains on the host, the other rows in the bucket
+chunks.  Primaries' cigar and position and the SAM bytes must equal
+BatchAligner(backend="jax") exactly, and every reference chain backend,
+"pallas" included, maps to the port's one dispatch.  devices=[cpu, cpu]
+splits every chain launch into two row blocks and must give the SAM of
+devices=[cpu], and, through run_pipeline, the reference host pipeline's
+files.
 """
 
 import numpy as np
@@ -19,7 +19,7 @@ import torch
 import bench
 from lr2rmats_tpu.align.batch import BatchAligner
 from lr2rmats_tpu.pipeline.stages import run_pipeline as ref_pipeline
-from lr2rmats_tpu_torch.align.batch import PALLAS_CHUNK, TorchBatchAligner
+from lr2rmats_tpu_torch.align.batch import TorchBatchAligner
 from lr2rmats_tpu_torch.ops.chain import K_MAX_A
 from lr2rmats_tpu_torch.pipeline.stages import run_pipeline
 from tests.test_aligner import plant_motifs, random_genome, splice_read
@@ -55,80 +55,87 @@ def _primaries(recs):
     return {r.qname: r for r in recs if not (r.flag & 0x100)}
 
 
-def test_pallas_backend_rows_cover_every_width(workload):
-    """Every row goes to chain_dp, in PALLAS_CHUNK-row chunks at the next
-    power of two of the widest row; the wide read's row exceeds the fused
-    kernel's cap."""
+def test_default_routing_covers_every_width(workload):
+    """The one chain dispatch routes every row once: the wide read's rows,
+    the widest over the fused kernel's cap, to the host chain; the others
+    to the native small-row chain or the bucket chunks."""
     g, ref, reads, _ = workload
-    port = TorchBatchAligner(g, index=ref.index, device="cpu",
-                             backend="pallas")
+    port = TorchBatchAligner(g, index=ref.index, device="cpu")
     rows = port._batch_anchors(reads)
-    widest = max(len(r.qpos) for r in rows)
-    assert widest > K_MAX_A
+    widths = [len(r.qpos) for r in rows]
+    assert max(widths) > K_MAX_A
     prep = port._prepare_dispatch(rows)
-    assert not prep["chunks"] and not prep["pre"] and not prep["host_rows"]
-    assert [off for off, *_ in prep["dp"]] == list(
-        range(0, len(rows), PALLAS_CHUNK))
-    _, qp, gp, nn = prep["dp"][0]
-    assert qp.shape == gp.shape == (len(rows), 1 << (widest - 1).bit_length())
-    assert nn.tolist() == [len(r.qpos) for r in rows]
+    host, wide = prep["host_rows"], len(reads) - 1
+    assert {rows[i].read_i for i in host} == {wide}
+    assert widths.index(max(widths)) in host
+    chunked = sorted(sum((c[0] for c in prep["chunks"]), []))
+    assert sorted(chunked + sum((e[1] for e in prep["pre"]), []) +
+                  host) == list(range(len(rows)))
+    assert chunked
+    for part, A, qp, gp, nn in prep["chunks"]:
+        assert qp.shape == gp.shape == (port._chunk(A), A)
+        assert nn[:len(part)].tolist() == [widths[i] for i in part]
 
 
-def test_pallas_backend_matches_jax(workload):
+def test_align_batch_matches_jax_on_a_wide_read(workload):
+    """align_batch's primaries equal the reference's; the reads twice
+    over, so that the batch has more than 8 reads and the records come
+    from the native builder."""
     g, ref, reads, names = workload
-    port = TorchBatchAligner(g, index=ref.index, device="cpu",
-                             backend="pallas")
+    port = TorchBatchAligner(g, index=ref.index, device="cpu")
+    names = names + [f"{n}.2" for n in names]
+    reads = reads + reads
     want = _primaries(ref.align_batch(names, reads))
     got = _primaries(port.align_batch(names, reads))
-    assert set(got) == set(want) and "wide" in got
+    assert set(got) == set(want) and {"wide", "wide.2"} <= set(got)
     for k in want:
         np.testing.assert_array_equal(got[k].cigar, want[k].cigar)
         assert got[k].pos == want[k].pos
-    assert got["wide"].pos == WIDE_EXON[0]
+    assert got["wide"].pos == got["wide.2"].pos == WIDE_EXON[0]
 
 
-def test_pallas_backend_sam_matches_jax_and_default(workload):
+def test_default_sam_matches_jax(workload):
     g, ref, reads, names = workload
     seqset = bench._pack(reads, names)
     want = ref.align_seqset_packed(seqset).emit_sam(ref.refs)
-    pallas = TorchBatchAligner(g, index=ref.index, device="cpu",
-                               backend="pallas")
     fused = TorchBatchAligner(g, index=ref.index, device="cpu")
-    assert pallas.align_seqset_packed(seqset).emit_sam(pallas.refs) == want
     assert fused.align_seqset_packed(seqset).emit_sam(fused.refs) == want
-    assert pallas.stats["device_calls"] == 1
-    assert pallas.stats["anchors"] > K_MAX_A
+    assert fused.stats["anchors"] > K_MAX_A
 
 
 def test_from_jax_aligner_carries_backend(workload):
+    """Every reference chain backend takes the port's one chain dispatch;
+    backend="torch" (as cardbench passes it) is the only value taken."""
     g, ref, _, _ = workload
     assert TorchBatchAligner.from_jax_aligner(ref, "cpu").backend == "torch"
     pal = BatchAligner(g, index=ref.index, backend="pallas")
     port = TorchBatchAligner.from_jax_aligner(pal, "cpu",
                                               devices=["cpu", "cpu"])
-    assert port.backend == "pallas"
+    assert port.backend == "torch"
     assert port.devices == [torch.device("cpu")] * 2
-    with pytest.raises(ValueError, match="backend"):
-        TorchBatchAligner(g, index=ref.index, device="cpu", backend="jax")
+    assert TorchBatchAligner(g, index=ref.index, device="cpu",
+                             backend="torch").backend == "torch"
+    for bad in ("pallas", "jax"):
+        with pytest.raises(ValueError, match=f"backend must be 'torch', "
+                                             f"got '{bad}'"):
+            TorchBatchAligner(g, index=ref.index, device="cpu", backend=bad)
     with pytest.raises(ValueError, match="devices"):
         TorchBatchAligner(g, index=ref.index, device="cpu", devices=[])
 
 
-@pytest.mark.parametrize("backend", ["torch", "pallas"])
+@pytest.mark.parametrize("backend", ["torch"])
 def test_split_over_two_devices_matches_one(bench_small, backend):
     """devices=[cpu, cpu]: every chain launch is split in two row blocks
-    (the 1664- and 320-row chunks, or the 512-row DP chunks), and the SAM
-    equals devices=[cpu]."""
+    (the 1664- and 320-row chunks), and the SAM equals devices=[cpu]."""
     g, seqset, _, _ = bench_small
     one = TorchBatchAligner(g, device="cpu", backend=backend)
     two = TorchBatchAligner(g, index=one.index, device="cpu",
                             backend=backend, devices=["cpu", "cpu"])
     rows = two._batch_anchors([seqset.get(i) for i in range(seqset.n)])
     pending = two._chain_rows_async(rows)
-    blocks = [(len(e[2]), len(e[-1])) for e in pending
-              if e[0] in ("device", "dp")]
-    assert len(rows) > PALLAS_CHUNK and blocks
-    for n_rows, n_blocks in blocks:   # split_rows' rule, min_rows 8 or 2
+    blocks = [(len(e[2]), len(e[-1])) for e in pending if e[0] == "device"]
+    assert blocks
+    for n_rows, n_blocks in blocks:   # split_rows' rule, min_rows 8
         assert n_blocks == (2 if n_rows % 2 == 0 else 1)
     assert blocks[0][1] == 2
     want = one.align_seqset_packed(seqset).emit_sam(one.refs)

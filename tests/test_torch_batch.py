@@ -93,6 +93,26 @@ def test_sam_matches_jax_bench_small(bench_small):
     assert st["shift_dp_kernel_launches"] == 0
 
 
+def test_align_batch_matches_jax_bench_small(bench_small, monkeypatch):
+    """The list API in one process (`align_batch`) with the native
+    library: its records, built by the packed builder the cells measure,
+    equal the reference's align_batch record for record."""
+    from tests.test_torch_host import reference_native_library
+    reference_native_library(monkeypatch)       # both take the native path
+    g, seqset, names, _ = bench_small
+    ref = BatchAligner(g, backend="jax")
+    port = TorchBatchAligner.from_jax_aligner(ref, device="cpu")
+    reads = [seqset.get(i) for i in range(seqset.n)]
+    want = ref.align_batch(names, reads)
+    got = port.align_batch(names, reads)
+    assert len(got) == len(want) > len(names) // 2
+    for a, b in zip(got, want):
+        assert (a.qname, a.flag, a.tid, a.pos, a.mapq, a.seq, a.qual,
+                a.tags) == (b.qname, b.flag, b.tid, b.pos, b.mapq, b.seq,
+                            b.qual, b.tags)
+        np.testing.assert_array_equal(a.cigar, b.cigar)
+
+
 def test_chain_routing_matches_reference(bench_small, monkeypatch):
     """The port routes every row as the reference does: same small-row
     set, same host rows, same bucket members (in fixed-size chunks).

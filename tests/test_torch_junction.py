@@ -62,8 +62,8 @@ def test_combine_reference_matches_jax(kind, G, min_intron):
                        jnp.int64(min_intron))
     t = {k: torch.from_numpy(b[k]) for k in ("m", "span", "dok", "aok",
                                              "el", "er")}
-    got = J.combine(SL, SR, t["m"], t["span"], t["dok"], t["aok"], t["el"],
-                    t["er"], 4, min_intron)
+    got = J.combine_reference(SL, SR, t["m"], t["span"], t["dok"], t["aok"],
+                              t["el"], t["er"], 4, min_intron)
     for name, g, w in zip(("score", "j", "cl", "cr", "vote", "found"), got,
                           want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
@@ -132,24 +132,9 @@ def test_combine_chunks_agree():
         assert torch.equal(a, c)
 
 
-def test_combine_rejects_bad_inputs():
+def test_junction_place_rejects_bad_inputs():
     ref, gaps = junction_gaps(1, 8, "random")
     b = J.prepare_junction_batch(ref, gaps)
-    SL, SR = _flank_dps(b)
-    args = [torch.from_numpy(b[k]) for k in ("m", "span", "dok", "aok",
-                                             "el", "er")]
-    with pytest.raises(ValueError, match="band"):
-        J.combine(SL, SR, *args, 8, 30)
-    bad = list(args)
-    bad[1] = bad[1].to(torch.int32)                  # span must be int64
-    with pytest.raises(ValueError, match="span"):
-        J.combine(SL, SR, *bad, 4, 30)
-    with pytest.raises(ValueError, match="SL / SR"):
-        J.combine(SL, SR[:, :, :4], *args, 4, 30)
-    meta = [t.to("meta") for t in (SL, SR, *args)]
-    with pytest.raises(ValueError, match="junction_place"):
-        J.combine(*meta, 4, 30)                 # the card runs the fused one
-    # the same checks at the fused entry point
     t = [torch.from_numpy(b[k]) for k in ("q", "qr", "lwin", "rwin", "m",
                                           "span", "dok", "aok", "el", "er")]
     with pytest.raises(ValueError, match="band"):

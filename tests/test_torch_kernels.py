@@ -772,25 +772,7 @@ def _bench_slice(n_reads=512):
                                 [f"read{i}" for i in range(len(reads))])
 
 
-def test_pallas_backend_slice_on_card_matches_host_backend(dev):
-    """backend="pallas": every row through csrc/chain_dp.cu, host
-    backtrack; the SAM of the host backend."""
-    from lr2rmats_tpu_torch.align.batch import BatchAligner, TorchBatchAligner
-    g, seqset = _bench_slice()
-    ref = BatchAligner(g)
-    port = TorchBatchAligner(g, index=ref.index, device="cuda",
-                             backend="pallas")
-    port.warmup_chain_shapes()
-    before = dict(_build.LAUNCHES)
-    got = port.align_seqset_packed(seqset).emit_sam(port.refs)
-    assert _build.LAUNCHES["chain_dp"] > before["chain_dp"]
-    assert _build.LAUNCHES["chain_dp_backtrack"] == \
-        before["chain_dp_backtrack"]
-    assert got == ref.align_seqset_packed(seqset).emit_sam(ref.refs)
-
-
-@pytest.mark.parametrize("backend", ["torch", "pallas"])
-def test_slice_split_over_every_card(dev, backend):
+def test_slice_split_over_every_card(dev):
     """TorchBatchAligner(devices=every card): each chain launch split in
     one row block per card; SAM identical to one card, and every card
     launched kernels."""
@@ -799,10 +781,10 @@ def test_slice_split_over_every_card(dev, backend):
     if n_cards < 2:
         pytest.skip("needs two cards")
     g, seqset = _bench_slice()
-    one = TorchBatchAligner(g, device="cuda:0", backend=backend)
+    one = TorchBatchAligner(g, device="cuda:0")
     cards = [torch.device("cuda", i) for i in range(n_cards)]
     every = TorchBatchAligner(g, index=one.index, device="cuda:0",
-                              backend=backend, devices=cards)
+                              devices=cards)
     every.warmup_chain_shapes()
     want = one.align_seqset_packed(seqset).emit_sam(one.refs)
     _build.reset_launches()
@@ -862,18 +844,6 @@ def test_junction_kernel_edge_gaps(dev, kind, min_intron):
         assert not bool(want[5].any())
     if kind == "no_class":
         assert bool((want[0] == -1e18).all())
-
-
-def test_combine_alone_refuses_the_card(dev):
-    """On the card the combine runs inside the junction kernel: combine()
-    on CUDA tensors raises instead of running its plain version."""
-    from lr2rmats_tpu_torch.ops.junction import combine
-    S = torch.zeros((65, 9, 4), dtype=torch.float32, device=dev)
-    i32 = torch.zeros(4, dtype=torch.int32, device=dev)
-    cls = torch.zeros((73, 4), dtype=torch.int8, device=dev)
-    span = torch.zeros(4, dtype=torch.int64, device=dev)
-    with pytest.raises(ValueError, match="junction_place"):
-        combine(S, S, i32, span, cls, cls, i32, i32, 4, 30)
 
 
 def _hamming_args(dev, buf, comb, off, rid, pos, shift=0):

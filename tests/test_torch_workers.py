@@ -171,27 +171,6 @@ def test_device_junctions_keep_one_build_worker(monkeypatch, capsys,
     assert port.stats["junction_gaps"] > 0
 
 
-def test_pallas_device_junctions_take_every_build_worker(
-        monkeypatch, capsys, workload, ref_aligner):
-    """backend="pallas" is outside the guard, as in the reference: two
-    build workers run the junction DP, and its stats stay exact."""
-    _, seqset = workload
-    one = TorchBatchAligner(workload[0], index=_port_index(ref_aligner),
-                            device="cpu", junction_backend="device",
-                            backend="pallas")
-    want = _sam(one, seqset)
-    monkeypatch.setenv("LR2RMATS_BUILD_WORKERS", "2")
-    port = TorchBatchAligner(workload[0], index=one.index, device="cpu",
-                             junction_backend="device", backend="pallas")
-    builds = _threads_of(monkeypatch, port, "_build_packed")
-    capsys.readouterr()
-    assert _sam(port, seqset) == want
-    assert "ignored" not in capsys.readouterr().err
-    assert len(builds) == _n_spans(seqset)
-    for k in ("junction_calls", "junction_gaps", "junction_found"):
-        assert port.stats[k] == one.stats[k] > 0, k
-
-
 def _port_index(ref_aligner):
     return TorchBatchAligner.from_jax_aligner(ref_aligner,
                                               device="cpu").index
