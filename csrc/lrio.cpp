@@ -16,6 +16,7 @@
 #include <vector>
 #include <algorithm>
 #include <thread>
+#include <atomic>
 
 namespace {
 
@@ -1619,6 +1620,430 @@ void lookup_range_mt_c(const uint64_t* hashes, int64_t M,
             });
     }
     for (auto& th : ts) th.join();
+}
+
+}  // extern "C"
+
+// ------------------------------------------------ terminal-exon rescue
+// One pass over a batch's extended candidates that places large terminal
+// soft clips as spliced exons: align/aligner.py
+// SpliceAligner._rescue_terminal_exons, the same records bit for bit.
+namespace {
+
+constexpr int RESCUE_OP_M = 0, RESCUE_OP_I = 1, RESCUE_OP_D = 2,
+              RESCUE_OP_N = 3, RESCUE_OP_S = 4;
+
+// The index as the rescue reads it: n bucketed hash tables, a query hash
+// routed to table hash % n (a sharded index's routing; a plain index is
+// one table), each table's ranges offset by its base into pos / strand.
+// Table pointers travel as int64 addresses; a table with m == 0 answers
+// nothing.
+struct RescueIndex {
+    int n;
+    const int64_t* hashes;
+    const int64_t* m;
+    const int64_t* bstart;
+    const int64_t* nb;
+    const int32_t* shift;
+    const int64_t* base;
+    const int64_t* pos;
+    const int8_t* strand;
+};
+
+struct RescueScratch {
+    std::vector<uint64_t> h;
+    std::vector<int64_t> qp;
+    std::vector<int8_t> qs;
+    std::vector<int64_t> lo, len, end;   // a query's bound, range left, end
+    std::vector<int32_t> tab;
+    std::vector<std::pair<int64_t, int64_t>> hits;   // (diagonal, qpos)
+    std::vector<int32_t> lops, rops;
+    std::vector<uint8_t> rc;
+    std::vector<std::pair<int32_t, int64_t>> ops, tmp;
+};
+
+// `_seed_clip`: the clip's minimizers looked up, hits kept for seeds of 1
+// to 16 places on the clip's strand inside [lo_g, hi_g); the diagonal with
+// the most hits (the smallest of a tie), if it has two or more.  Gives the
+// diagonal and the smallest and largest clip position on it.
+//
+// The lookups are lookup_range_c's bucketed lower bounds, run in lockstep
+// over the clip's queries (one probe of each a pass, the next probes
+// prefetched): on a whole-genome table nearly every probe misses the
+// caches and the TLB, and a clip has hundreds of queries, so their misses
+// overlap instead of following one another.  An equal run is then counted
+// up to 17 entries, enough to drop the seeds of more than 16 places.
+bool rescue_seed_clip(const RescueIndex& X, const uint8_t* clip, int64_t c,
+                      int k, int w, int64_t lo_g, int64_t hi_g,
+                      RescueScratch& S, int64_t* diag, int64_t* qmin,
+                      int64_t* qmax) {
+    S.h.resize((size_t)c);
+    S.qp.resize((size_t)c);
+    S.qs.resize((size_t)c);
+    const int64_t n = extract_minimizers_c(clip, c, k, w, S.h.data(),
+                                           S.qp.data(), S.qs.data());
+    S.lo.resize((size_t)n);
+    S.len.resize((size_t)n);
+    S.end.resize((size_t)n);
+    S.tab.resize((size_t)n);
+    auto hashes_of = [&](int t) {
+        return (const uint64_t*)(uintptr_t)X.hashes[t];
+    };
+    // each query's table and bucket; the bucket starts prefetched
+    for (int64_t j = 0; j < n; ++j) {
+        uint64_t hv = S.h[(size_t)j];
+        int t = (int)(hv % (uint64_t)X.n);
+        S.tab[(size_t)j] = t;
+        if (X.m[t] <= 0) { S.len[(size_t)j] = -1; continue; }
+        int64_t b = (int64_t)(hv >> X.shift[t]);
+        if (b >= X.nb[t]) b = X.nb[t] - 1;
+        S.lo[(size_t)j] = b;
+        S.len[(size_t)j] = 0;
+        __builtin_prefetch((const int64_t*)(uintptr_t)X.bstart[t] + b);
+    }
+    // the buckets' ranges; their middles prefetched
+    for (int64_t j = 0; j < n; ++j) {
+        if (S.len[(size_t)j] < 0) continue;
+        int t = S.tab[(size_t)j];
+        const int64_t* bs = (const int64_t*)(uintptr_t)X.bstart[t];
+        int64_t b = S.lo[(size_t)j];
+        S.lo[(size_t)j] = bs[b];
+        S.end[(size_t)j] = bs[b + 1];
+        S.len[(size_t)j] = bs[b + 1] - bs[b];
+        __builtin_prefetch(hashes_of(t) + bs[b] + (S.len[(size_t)j] >> 1));
+    }
+    // lower bounds, one probe a query a pass
+    for (bool more = true; more;) {
+        more = false;
+        for (int64_t j = 0; j < n; ++j) {
+            int64_t len = S.len[(size_t)j];
+            if (len <= 0) continue;
+            const uint64_t* hs = hashes_of(S.tab[(size_t)j]);
+            int64_t half = len >> 1, probe = S.lo[(size_t)j] + half;
+            if (hs[probe] < S.h[(size_t)j]) {
+                S.lo[(size_t)j] = probe + 1;
+                len -= half + 1;
+            } else {
+                len = half;
+            }
+            S.len[(size_t)j] = len;
+            if (len > 0) {
+                __builtin_prefetch(hs + S.lo[(size_t)j] + (len >> 1));
+                more = true;
+            }
+        }
+    }
+    // equal runs of 1 to 16 entries; their places and strands prefetched
+    for (int64_t j = 0; j < n; ++j) {
+        if (S.len[(size_t)j] < 0) continue;
+        int t = S.tab[(size_t)j];
+        const uint64_t* hs = hashes_of(t);
+        int64_t lo = S.lo[(size_t)j], cnt = 0;
+        while (cnt <= 16 && lo + cnt < S.end[(size_t)j] &&
+               hs[lo + cnt] == S.h[(size_t)j])
+            ++cnt;
+        if (cnt == 0 || cnt > 16) { S.len[(size_t)j] = -1; continue; }
+        S.len[(size_t)j] = cnt;
+        S.lo[(size_t)j] = lo + X.base[t];
+        __builtin_prefetch(X.pos + S.lo[(size_t)j]);
+        __builtin_prefetch(X.strand + S.lo[(size_t)j]);
+    }
+    S.hits.clear();
+    for (int64_t j = 0; j < n; ++j) {
+        if (S.len[(size_t)j] < 0) continue;
+        int64_t lo = S.lo[(size_t)j];
+        for (int64_t e = lo; e < lo + S.len[(size_t)j]; ++e) {
+            if (X.strand[e] != S.qs[(size_t)j]) continue;
+            int64_t gp = X.pos[e];
+            if (gp >= lo_g && gp < hi_g)
+                S.hits.emplace_back(gp - S.qp[(size_t)j], S.qp[(size_t)j]);
+        }
+    }
+    if (S.hits.empty()) return false;
+    std::sort(S.hits.begin(), S.hits.end());
+    size_t best = 0, best_n = 0;
+    for (size_t a = 0; a < S.hits.size();) {
+        size_t b = a;
+        while (b < S.hits.size() && S.hits[b].first == S.hits[a].first) ++b;
+        if (b - a > best_n) { best = a; best_n = b - a; }
+        a = b;
+    }
+    if (best_n < 2) return false;
+    *diag = S.hits[best].first;
+    *qmin = S.hits[best].second;
+    *qmax = S.hits[best + best_n - 1].second;
+    return true;
+}
+
+inline int64_t rescue_mismatches(const uint8_t* a, const uint8_t* b,
+                                 int64_t n) {
+    int64_t mm = 0;
+    for (int64_t t = 0; t < n; ++t) mm += a[t] != b[t];
+    return mm;
+}
+
+// mismatches inside the M runs of `ops` (n runs) walked from (qi, gi);
+// advances qi and gi
+int64_t rescue_run_mismatches(const uint8_t* codes, const uint8_t* ref,
+                              const int32_t* ops, int n, int64_t* qi,
+                              int64_t* gi) {
+    int64_t gm = 0;
+    for (int r = 0; r < n; ++r) {
+        int op = ops[2 * r];
+        int64_t l = ops[2 * r + 1];
+        if (op == RESCUE_OP_M) {
+            gm += rescue_mismatches(codes + *qi, ref + *gi, l);
+            *qi += l; *gi += l;
+        } else if (op == RESCUE_OP_I) {
+            *qi += l;
+        } else {
+            *gi += l;
+        }
+    }
+    return gm;
+}
+
+inline int64_t rescue_indels(const int32_t* ops, int n) {
+    int64_t s = 0;
+    for (int r = 0; r < n; ++r)
+        if (ops[2 * r] == RESCUE_OP_I || ops[2 * r] == RESCUE_OP_D)
+            s += ops[2 * r + 1];
+    return s;
+}
+
+// append (op, l), merged into the last run when it has the same op
+inline void rescue_fold(std::vector<std::pair<int32_t, int64_t>>& ops,
+                        int op, int64_t l) {
+    if (!ops.empty() && ops.back().first == op) ops.back().second += l;
+    else ops.emplace_back(op, l);
+}
+
+}  // namespace
+
+extern "C" {
+
+// The terminal-exon rescue of every candidate with rc_in == 0, in place
+// on the extension's outputs (extend_chain_batch_c's or
+// assemble_ops_batch_c's: ops at ops_io[2 * i * ops_stride], n_ops_io[i]
+// runs).  A candidate whose unfiltered first or last run is a soft clip of
+// at least k + w + 4 bases has that clip seeded against the index
+// (rescue_seed_clip) within max_intron of its alignment edge, the leading
+// clip first; a colinear block found there is joined by
+// refine_splice_indel_c (band B) when the junction scores above 0 and the
+// exon's mismatches are at most a quarter of it.  A placed clip rewrites
+// the candidate's ops, pos, ed, nmatch and vote.  flags_out[i]: clips
+// seeded (bits 0-1), clips placed (bits 2-3), and bit 4 when the
+// rewritten ops would not fit ops_stride runs, in which case nothing of
+// the candidate is written.  Threaded over the candidates that have such a
+// clip; reads of strand 1 are reverse-complemented as the extension does.
+int rescue_terminal_batch_c(
+    const uint8_t* reads, const int64_t* read_offs,
+    const uint8_t* ref, int64_t ref_len,
+    const int64_t* chrom_offs, int n_chrom,
+    const int32_t* cand_read, const int8_t* cand_strand,
+    int n_tab, const int64_t* tab_hashes, const int64_t* tab_m,
+    const int64_t* tab_bstart, const int64_t* tab_nb,
+    const int32_t* tab_shift, const int64_t* tab_base,
+    const int64_t* idx_pos, const int8_t* idx_strand,
+    int k, int w, int64_t max_intron, int min_intron_len, int B,
+    int n_cand, int ops_stride, int n_threads, const int32_t* rc_in,
+    int64_t* pos_io, int32_t* ops_io, int32_t* n_ops_io, int64_t* ed_io,
+    int64_t* nmatch_io, int32_t* vote_io, int8_t* flags_out) {
+    const RescueIndex X{n_tab, tab_hashes, tab_m, tab_bstart, tab_nb,
+                        tab_shift, tab_base, idx_pos, idx_strand};
+    const int64_t min_clip = k + w + 4;
+    std::vector<int> todo;
+    for (int i = 0; i < n_cand; ++i) {
+        flags_out[i] = 0;
+        int n0 = n_ops_io[i];
+        if (rc_in[i] != 0 || n0 <= 0) continue;
+        const int32_t* in = ops_io + (int64_t)i * 2 * ops_stride;
+        if ((in[0] == RESCUE_OP_S && in[1] >= min_clip) ||
+            (in[2 * (n0 - 1)] == RESCUE_OP_S &&
+             in[2 * (n0 - 1) + 1] >= min_clip))
+            todo.push_back(i);
+    }
+
+    auto one = [&](int i, RescueScratch& S) {
+        int32_t* io = ops_io + (int64_t)i * 2 * ops_stride;
+        S.ops.clear();
+        for (int r = 0; r < n_ops_io[i]; ++r)
+            S.ops.emplace_back(io[2 * r], (int64_t)io[2 * r + 1]);
+        const uint8_t* codes = reads + read_offs[cand_read[i]];
+        int64_t L = read_offs[cand_read[i] + 1] - read_offs[cand_read[i]];
+        if (cand_strand[i]) {
+            S.rc.resize((size_t)L);
+            for (int64_t t = 0; t < L; ++t) {
+                uint8_t c = codes[L - 1 - t];
+                S.rc[(size_t)t] = c < 4 ? (uint8_t)(3 - c) : c;
+            }
+            codes = S.rc.data();
+        }
+        int64_t pos = pos_io[i], ed = ed_io[i], nm = nmatch_io[i];
+        int64_t vote = vote_io[i];
+        const int64_t* ub = std::upper_bound(chrom_offs,
+                                             chrom_offs + n_chrom + 1, pos);
+        int tc = (int)(ub - chrom_offs) - 1;
+        const int64_t chrom_lo = chrom_offs[tc], chrom_hi = chrom_offs[tc + 1];
+        int seeded = 0, placed = 0;
+        int64_t d, qmin, qmax, ilen;
+        int32_t ln, rn, v;
+        double score;
+
+        // ---- leading clip
+        if (S.ops[0].first == RESCUE_OP_S && S.ops[0].second >= min_clip) {
+            int64_t c = S.ops[0].second;
+            ++seeded;
+            if (rescue_seed_clip(X, codes, c, k, w,
+                                 std::max(chrom_lo, pos - max_intron), pos,
+                                 S, &d, &qmin, &qmax)) {
+                int64_t exon_g0 = d, exon_len0 = qmax + k;
+                int64_t gap_q = c - exon_len0;
+                int64_t left_end_g = exon_g0 + exon_len0;
+                int cap = (int)gap_q + 2 * B + 4;
+                if (gap_q >= 0 &&
+                    pos - left_end_g - gap_q >= min_intron_len &&
+                    exon_g0 >= chrom_lo) {
+                    S.lops.resize(2 * (size_t)cap);
+                    S.rops.resize(2 * (size_t)cap);
+                    if (refine_splice_indel_c(
+                            codes + exon_len0, (int)gap_q, ref, ref_len,
+                            left_end_g, pos, B, min_intron_len, 0, 0,
+                            S.lops.data(), &ln, S.rops.data(), &rn, &ilen,
+                            &v, &score) == 0 && score > 0) {
+                        int64_t mism = rescue_mismatches(
+                            codes, ref + exon_g0, exon_len0);
+                        if (mism <= 0.25 * exon_len0) {
+                            // the exon, the junction's runs and the intron
+                            // as they come; the rest folded onto them
+                            S.tmp.clear();
+                            S.tmp.emplace_back(RESCUE_OP_M, exon_len0);
+                            for (int r = 0; r < ln; ++r)
+                                S.tmp.emplace_back(S.lops[2 * r],
+                                                   S.lops[2 * r + 1]);
+                            S.tmp.emplace_back(RESCUE_OP_N, ilen);
+                            for (int r = 0; r < rn; ++r)
+                                S.tmp.emplace_back(S.rops[2 * r],
+                                                   S.rops[2 * r + 1]);
+                            for (size_t r = 1; r < S.ops.size(); ++r)
+                                rescue_fold(S.tmp, S.ops[r].first,
+                                            S.ops[r].second);
+                            S.ops.swap(S.tmp);
+                            pos = exon_g0;
+                            int64_t qi = exon_len0, gi = left_end_g;
+                            int64_t gm = rescue_run_mismatches(
+                                codes, ref, S.lops.data(), ln, &qi, &gi);
+                            gi += ilen;
+                            gm += rescue_run_mismatches(
+                                codes, ref, S.rops.data(), rn, &qi, &gi);
+                            ed += mism + gm +
+                                  rescue_indels(S.lops.data(), ln) +
+                                  rescue_indels(S.rops.data(), rn);
+                            nm += exon_len0 - mism;
+                            vote += v;
+                            ++placed;
+                        }
+                    }
+                }
+            }
+        }
+        // ---- trailing clip, on the ops as the lead left them
+        if (!S.ops.empty() && S.ops.back().first == RESCUE_OP_S &&
+            S.ops.back().second >= min_clip) {
+            int64_t c = S.ops.back().second;
+            int64_t qstart = L - c;
+            int64_t ref_end = pos;
+            for (auto& o : S.ops)
+                if (o.first == RESCUE_OP_M || o.first == RESCUE_OP_D ||
+                    o.first == RESCUE_OP_N)
+                    ref_end += o.second;
+            ++seeded;
+            if (rescue_seed_clip(X, codes + qstart, c, k, w, ref_end,
+                                 std::min(chrom_hi, ref_end + max_intron),
+                                 S, &d, &qmin, &qmax)) {
+                int64_t exon_gs = d, exon_q0 = qmin;
+                int64_t exon_len0 = c - exon_q0;
+                int cap = (int)exon_q0 + 2 * B + 4;
+                if ((exon_gs + exon_q0) - ref_end >= min_intron_len &&
+                    exon_gs + c <= chrom_hi) {
+                    S.lops.resize(2 * (size_t)cap);
+                    S.rops.resize(2 * (size_t)cap);
+                    int64_t gs = exon_gs + exon_q0;
+                    if (refine_splice_indel_c(
+                            codes + qstart, (int)exon_q0, ref, ref_len,
+                            ref_end, gs, B, min_intron_len, 0, 0,
+                            S.lops.data(), &ln, S.rops.data(), &rn, &ilen,
+                            &v, &score) == 0 && score > 0) {
+                        int64_t mism = rescue_mismatches(
+                            codes + qstart + exon_q0, ref + gs, exon_len0);
+                        if (mism <= 0.25 * exon_len0) {
+                            S.ops.pop_back();
+                            for (int r = 0; r < ln; ++r)
+                                rescue_fold(S.ops, S.lops[2 * r],
+                                            S.lops[2 * r + 1]);
+                            rescue_fold(S.ops, RESCUE_OP_N, ilen);
+                            for (int r = 0; r < rn; ++r)
+                                rescue_fold(S.ops, S.rops[2 * r],
+                                            S.rops[2 * r + 1]);
+                            rescue_fold(S.ops, RESCUE_OP_M, exon_len0);
+                            int64_t qi = qstart, gi = ref_end;
+                            int64_t gm = rescue_run_mismatches(
+                                codes, ref, S.lops.data(), ln, &qi, &gi);
+                            // the right flank ends at gs: walk it from its
+                            // start
+                            int64_t r_ref = 0;
+                            for (int r = 0; r < rn; ++r)
+                                if (S.rops[2 * r] == RESCUE_OP_M ||
+                                    S.rops[2 * r] == RESCUE_OP_D)
+                                    r_ref += S.rops[2 * r + 1];
+                            gi = gs - r_ref;
+                            gm += rescue_run_mismatches(
+                                codes, ref, S.rops.data(), rn, &qi, &gi);
+                            ed += mism + gm +
+                                  rescue_indels(S.lops.data(), ln) +
+                                  rescue_indels(S.rops.data(), rn);
+                            nm += exon_len0 - mism;
+                            vote += v;
+                            ++placed;
+                        }
+                    }
+                }
+            }
+        }
+        int8_t f = (int8_t)(seeded | (placed << 2));
+        if (placed) {
+            if ((int64_t)S.ops.size() > ops_stride) {
+                f |= 16;
+            } else {
+                for (size_t r = 0; r < S.ops.size(); ++r) {
+                    io[2 * r] = S.ops[r].first;
+                    io[2 * r + 1] = (int32_t)S.ops[r].second;
+                }
+                n_ops_io[i] = (int32_t)S.ops.size();
+                pos_io[i] = pos;
+                ed_io[i] = ed;
+                nmatch_io[i] = nm;
+                vote_io[i] = (int32_t)vote;
+            }
+        }
+        flags_out[i] = f;
+    };
+
+    int n_work = (int)todo.size();
+    int nt = std::max(1, std::min(n_threads, n_work));
+    std::atomic<int> next(0);
+    auto work = [&]() {
+        RescueScratch S;
+        for (int t; (t = next.fetch_add(1)) < n_work;) one(todo[t], S);
+    };
+    if (nt <= 1) {
+        work();
+    } else {
+        std::vector<std::thread> ts;
+        for (int t = 0; t < nt; ++t) ts.emplace_back(work);
+        for (auto& th : ts) th.join();
+    }
+    return 0;
 }
 
 }  // extern "C"

@@ -137,7 +137,7 @@ class SpliceAligner:
             res = self._extend_py(codes, q, g)
         return self._rescue_terminal_exons(codes, res)
 
-    def _rescue_terminal_exons(self, codes: np.ndarray, res, pre=None):
+    def _rescue_terminal_exons(self, codes: np.ndarray, res):
         """Place large soft-clips as spliced terminal exons.
 
         A read whose first/last exon had no anchors ends up soft-clipped;
@@ -146,11 +146,9 @@ class SpliceAligner:
         and if a colinear block is found, join it with the indel-aware
         junction DP (motif-scored), extending the CIGAR with exon + N.
 
-        `pre` optionally carries batch-precomputed clip seeds
-        {"lead"/"trail": (h, qp, qs, lo, hi)} so the batch path pays ONE
-        native minimizer extraction + ONE index lookup per batch instead
-        of two python calls per rescued read (batch.py
-        _packed_from_extension).
+        The batch path runs this as one native pass over the batch (csrc
+        rescue_terminal_batch_c, batch.py `_rescue_terminal`), held to this
+        version record for record (tests/test_torch_rescue.py).
         """
         p = self.p
         pos, ops, ed, nmatch, vote = res
@@ -159,20 +157,15 @@ class SpliceAligner:
         MIN_RESCUE = p.k + p.w + 4  # need at least one minimizer
         ref = self.genome.codes
 
-        def _seed_clip(clip_codes, lo_g, hi_g, seeds=None):
+        def _seed_clip(clip_codes, lo_g, hi_g):
             """Best colinear block of the clip within ref window [lo_g, hi_g);
             returns (qpos, gpos) arrays or None.  The clip is already in
             aligned-read orientation, so only forward-strand matches
             (index strand == query minimizer strand) count."""
-            if seeds is not None:
-                h, qp, qs, lo, hi = seeds
-                if not len(h):
-                    return None
-            else:
-                h, qp, qs = extract_minimizers(clip_codes, p.k, p.w)
-                if not len(h):
-                    return None
-                lo, hi = self.index.lookup(h)
+            h, qp, qs = extract_minimizers(clip_codes, p.k, p.w)
+            if not len(h):
+                return None
+            lo, hi = self.index.lookup(h)
             cnt = (hi - lo).astype(np.int64)
             keep = (cnt > 0) & (cnt <= 16)   # drop repetitive seeds
             if not keep.any():
@@ -210,7 +203,7 @@ class SpliceAligner:
             c = ops[0][1]
             clip = codes[:c]
             hit = _seed_clip(clip, max(chrom_lo, pos - p.chain.max_intron),
-                             pos, seeds=pre.get("lead") if pre else None)
+                             pos)
             if hit is not None:
                 cq, cg = hit
                 exon_g0 = int(cg[0] - cq[0])          # diagonal placement
@@ -277,8 +270,7 @@ class SpliceAligner:
             ref_end = pos + sum(l for op, l in ops
                                 if op in (OP_M, OP_D, OP_N))
             hit = _seed_clip(codes[qstart:], ref_end,
-                             min(chrom_hi, ref_end + p.chain.max_intron),
-                             seeds=pre.get("trail") if pre else None)
+                             min(chrom_hi, ref_end + p.chain.max_intron))
             if hit is not None:
                 cq, cg = hit
                 exon_gs = int(cg[0] - cq[0])           # diagonal

@@ -67,7 +67,7 @@ from ..device import resolve_device
 from ..index.minimizer import MinimizerIndex, extract_minimizers
 from ..index.seed_device import MAX_CLUSTERS_PER_STRAND, TorchSeedLookup
 from ..io.fasta import Genome, SeqSet, decode_seq, revcomp
-from ..io.sam import FREVERSE, FSECONDARY, OP_N, OP_S, AlnRec
+from ..io.sam import FREVERSE, FSECONDARY, OP_N, AlnRec
 from ..native import get_lib
 from ..ops import _build
 from ..ops.chain import (FUSED_MIN_ROWS, chain_dp_backtrack,
@@ -119,6 +119,46 @@ EXC_ROWS = 8
 _JUNCTION_ENV = ("1", "scan", "pallas")
 # junction slots per candidate of the native collect pass
 _GSTRIDE = 64
+# band of the terminal-exon rescue's junction DP (align/splice.py
+# refine_splice_indel's default, as SpliceAligner._rescue_terminal_exons
+# calls it)
+RESCUE_BAND = 4
+
+
+def _rescue_tables(index):
+    """The index as the native rescue pass reads it: six columns over its
+    hash tables (address, length, bucket starts' address, bucket count,
+    shift, base into the position and strand arrays), and those two
+    arrays.  A plain index is one table; an in-process sharded index one a
+    shard, routed by hash % shards (its `lookup`'s routing); a
+    multi-process one answers from its local shard alone, as its `lookup`
+    does."""
+    shards = getattr(index, "shards", None)
+    if shards is None:
+        tabs, pos, strand = [(index, 0)], index.pos, index.strand
+    elif index.local_only:
+        tabs = [(s if i == index.local_shard else None, 0)
+                for i, s in enumerate(shards)]
+        local = shards[index.local_shard]
+        pos, strand = local.pos, local.strand
+    else:
+        tabs = list(zip(shards, index._base.tolist()))
+        pos, strand = index.pos, index.strand
+    rows = []
+    for t, base in tabs:
+        if t is None or not len(t.hashes):
+            rows.append((0, 0, 0, 0, 0, 0))
+            continue
+        if t.hashes.dtype != np.uint64 or not t.hashes.flags.c_contiguous:
+            raise TypeError("the rescue reads a C-ordered uint64 hash table")
+        t._ensure_buckets()
+        rows.append((t.hashes.ctypes.data, len(t.hashes),
+                     t._bstart.ctypes.data, t._nbuckets, t._bshift, base))
+    cols = [np.array(c, np.int32 if j == 4 else np.int64)
+            for j, c in enumerate(zip(*rows))]
+    # passed as they are (the binding checks int64 / int8, C order): a
+    # converted copy of a whole-genome table would cost gigabytes a batch
+    return cols, pos, strand
 
 
 def _survivor_ranks(rid_kept: np.ndarray):
@@ -758,18 +798,49 @@ class BatchAligner:
                                            read_offs, cand_read,
                                            cand_strand, ext)
 
+    def _rescue_terminal(self, lib, reads_concat, read_offs, cand_read,
+                         cand_strand, ext) -> np.ndarray:
+        """The terminal-exon rescue of the batch's candidates with rc == 0
+        (`SpliceAligner._rescue_terminal_exons`, the same records): one
+        threaded native pass (csrc rescue_terminal_batch_c) that rewrites
+        the placed candidates in `ext` in place.  Returns its flags a
+        candidate: clips seeded (bits 0-1), placed (bits 2-3), and 16 where
+        the rewritten ops outgrew the stride and nothing was written."""
+        p = self.p
+        (stride, pos_out, ops_out, n_ops, ed_out, nm_out, vote_out,
+         rc_out) = ext
+        n = len(pos_out)
+        tabs, pos, strand = _rescue_tables(self.index)
+        flags = np.zeros(n, np.int8)
+        ref = self.inner.genome.codes
+        lib.rescue_terminal_batch_c(
+            reads_concat, read_offs, ref, len(ref),
+            self.index.chrom_offsets, len(self.index.chrom_offsets) - 1,
+            cand_read, cand_strand, len(tabs[0]), *tabs,
+            pos, strand, p.k, p.w, p.chain.max_intron, p.min_intron_len,
+            RESCUE_BAND, n, stride, self.n_threads, rc_out,
+            pos_out, ops_out, n_ops, ed_out, nm_out, vote_out, flags)
+        return flags
+
     def _packed_from_extension(self, names, reads, flat, cands_by_read,
                                reads_concat, read_offs, cand_read,
                                cand_strand, ext):
         """Vectorized RecordBatch assembly from the batch extension
-        outputs: only the rare native-refused (rc != 0) and terminal-rescue
-        candidates take a per-record path.  Bit-identical output is tested
-        against the reference's records."""
+        outputs, after the native terminal-exon rescue: only the rare
+        native-refused (rc != 0) candidates, and those whose rescue
+        outgrew the op stride, take a per-record path.  Bit-identical
+        output is tested against the reference's records."""
         p = self.p
+        with span("lr2rmats.align.rescue"):
+            flags = self._rescue_terminal(get_lib(), reads_concat,
+                                          read_offs, cand_read, cand_strand,
+                                          ext)
+        count("lr2rmats.align.rescue_clips", int((flags & 3).sum()))
+        count("lr2rmats.align.rescue_placed",
+              int(((flags >> 2) & 3).sum()))
         (stride, pos_out, ops_out, n_ops, ed_out, nm_out, vote_out,
          rc_out) = ext
         n = len(flat)
-        MIN_RESCUE = p.k + p.w + 4
         no = n_ops.astype(np.int64)
         # RAGGED view of the op stream: record i's (code, len) pairs live at
         # ops_out[2*(i*stride) ... ], only no[i] of the stride slots real.
@@ -783,81 +854,25 @@ class BatchAligner:
         obase = rowrep * stride + colidx
         opc_f = ops_out[2 * obase]
         opl_f = ops_out[2 * obase + 1]
-        ar = np.arange(n)
-        nz = no > 0
-        # terminal-exon rescue triggers on the UNFILTERED first/last op
-        first_c = np.where(nz, ops_out[2 * (ar * stride)], -1)
-        first_l = np.where(nz, ops_out[2 * (ar * stride) + 1], 0)
-        last_at = ar * stride + np.maximum(no - 1, 0)
-        last_c = np.where(nz, ops_out[2 * last_at], -1)
-        last_l = np.where(nz, ops_out[2 * last_at + 1], 0)
-        first_clip = (first_c == OP_S) & (first_l >= MIN_RESCUE)
-        last_clip = (last_c == OP_S) & (last_l >= MIN_RESCUE)
-        special = (rc_out != 0) | first_clip | last_clip
         pos_g = pos_out.astype(np.int64).copy()
         ed = ed_out.astype(np.int64).copy()
         nmatch = nm_out.astype(np.int64).copy()
         vote = vote_out.astype(np.int64).copy()
         cig_list: Dict[int, np.ndarray] = {}
         intron_special = {}
-        special_idx = np.nonzero(special)[0]
-        # one revcomp per (read, strand) — several specials share a read
-        seq_cache: Dict[tuple, np.ndarray] = {}
-
-        def _seq(i):
-            ri, rank = flat[i]
-            s = cands_by_read[ri][rank][1]
-            key = (ri, s)
-            sc = seq_cache.get(key)
-            if sc is None:
-                sc = revcomp(reads[ri]) if s == 1 else reads[ri]
-                seq_cache[key] = sc
-            return sc
-
-        # batch-precompute the rescue clip seeds: ONE native minimizer
-        # extraction + ONE index lookup for every clip in the batch
-        # (the per-clip python pair cost ~0.25 ms x ~2k rescues/batch on
-        # the ONT profile)
-        pre_by_i: Dict[int, dict] = {}
-        clip_specs = []                       # (record idx, side, clip)
-        for i in special_idx:
-            if rc_out[i]:
-                continue                      # full re-extend path
-            sc = _seq(i)
-            if first_clip[i]:
-                clip_specs.append((i, "lead", sc[:int(first_l[i])]))
-            if last_clip[i]:
-                clip_specs.append((i, "trail", sc[len(sc) -
-                                                  int(last_l[i]):]))
-        if clip_specs:
-            h, qp, qs, rid, _l = self._batch_minimizers(
-                [c for _, _, c in clip_specs])
-            if h is None:
-                h = np.zeros(0, np.uint64)
-                qp = np.zeros(0, np.int64)
-                qs = np.zeros(0, np.int8)
-                rid = np.zeros(0, np.int32)
-            lo, hi = self.index.lookup(h) if len(h) else (
-                np.zeros(0, np.int64), np.zeros(0, np.int64))
-            bounds = np.searchsorted(rid, np.arange(len(clip_specs) + 1))
-            for j, (i, side, _) in enumerate(clip_specs):
-                s0, s1 = int(bounds[j]), int(bounds[j + 1])
-                pre_by_i.setdefault(int(i), {})[side] = (
-                    h[s0:s1], qp[s0:s1], qs[s0:s1], lo[s0:s1], hi[s0:s1])
-        for i in special_idx:
+        for i in np.nonzero((rc_out != 0) | (flags >= 16))[0]:
             ri, rank = flat[i]
             _, s, cq, cg = cands_by_read[ri][rank]
-            seq_codes = _seq(i)
+            seq_codes = revcomp(reads[ri]) if s == 1 else reads[ri]
             if rc_out[i]:
                 res = self.inner._extend(seq_codes, cq, cg)
             else:
                 o0 = int(ostarts[i])
                 base_ops = [(int(opc_f[o0 + t]), int(opl_f[o0 + t]))
                             for t in range(int(no[i]))]
-                res = (int(pos_g[i]), base_ops, int(ed[i]), int(nmatch[i]),
-                       int(vote[i]))
                 res = self.inner._rescue_terminal_exons(
-                    seq_codes, res, pre=pre_by_i.get(int(i)))
+                    seq_codes, (int(pos_g[i]), base_ops, int(ed[i]),
+                                int(nmatch[i]), int(vote[i])))
             pos_g[i], ops_i, ed[i], nmatch[i], vote[i] = res
             cig_list[i] = np.array([(l << 4) | op for op, l in ops_i
                                     if l > 0], np.uint32)

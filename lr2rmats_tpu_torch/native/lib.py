@@ -190,6 +190,18 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         c_i64p, c_i32p, c_i32p, c_i64p, c_i64p, c_i32p, c_i32p]
 
+    lib.rescue_terminal_batch_c.restype = ctypes.c_int
+    lib.rescue_terminal_batch_c.argtypes = [
+        c_u8p, c_i64p, c_u8p, ctypes.c_int64,
+        c_i64p, ctypes.c_int,
+        c_i32p, c_i8p,
+        ctypes.c_int, c_i64p, c_i64p, c_i64p, c_i64p, c_i32p, c_i64p,
+        c_i64p, c_i8p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, c_i32p,
+        c_i64p, c_i32p, c_i32p, c_i64p, c_i64p, c_i32p, c_i8p]
+
     lib.build_kmer_table_c.restype = ctypes.c_int64
     lib.build_kmer_table_c.argtypes = [
         c_u8p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,

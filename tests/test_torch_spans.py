@@ -18,6 +18,8 @@ import pytest
 import torch
 
 from lr2rmats_tpu_torch import synth
+from lr2rmats_tpu_torch.align import aligner as port_aligner
+from lr2rmats_tpu_torch.align import batch as port_batch
 from lr2rmats_tpu_torch.align.batch import TorchBatchAligner
 from lr2rmats_tpu_torch.io.fasta import Genome, read_fasta
 from lr2rmats_tpu_torch.io.gtf import ChrNames, read_anno_trans
@@ -43,6 +45,10 @@ SR_SPANS = {"lr2rmats.sr.call", "lr2rmats.sr.seed", "lr2rmats.sr.verify",
             "lr2rmats.sr.best", "lr2rmats.sr.pair", "lr2rmats.sr.count"}
 WORKER_SPANS = {"lr2rmats.align.seed", "lr2rmats.align.prepare",
                 "lr2rmats.align.build"}
+# spans under the build span, on the build worker
+BUILD_SPANS = {"lr2rmats.align.rescue"}
+RESCUE_COUNTERS = {"lr2rmats.align.rescue_clips",
+                   "lr2rmats.align.rescue_placed"}
 READS = 300
 BATCH = 150                       # two batches
 
@@ -69,7 +75,7 @@ def aligner(dataset):
 class _Align:
     """One `align_seqset_packed` call on two batches; its SAM bytes."""
     call = "lr2rmats.align.call"
-    spans = ALIGN_SPANS | POLISH_SPANS
+    spans = ALIGN_SPANS | POLISH_SPANS | BUILD_SPANS
 
     def __init__(self, dataset, aligner):
         self.al = aligner
@@ -156,7 +162,10 @@ def test_spans_of_a_call(entry):
     by_id = _by_id()
     for r in recs:
         assert r["start"] <= r["end"]
-        if r["name"] != entry.call and r["name"] not in WORKER_SPANS:
+        if r["name"] in BUILD_SPANS:
+            assert by_id[r["parent"]]["name"] == "lr2rmats.align.build"
+            assert r["thread"] != calls[0]["thread"]
+        elif r["name"] != entry.call and r["name"] not in WORKER_SPANS:
             # main-thread spans nest under the call
             assert r["parent"] is not None
             assert r["thread"] == calls[0]["thread"]
@@ -186,6 +195,10 @@ def test_spans_of_a_call(entry):
                  "lr2rmats.align.dispatch", "lr2rmats.align.chain_wait"):
         assert totals[name][1] == 2, name                 # one a batch
     assert ctr["lr2rmats.align.batches"] == 2
+    assert totals["lr2rmats.align.rescue"][1] == 2            # one a batch
+    assert RESCUE_COUNTERS <= set(ctr)
+    assert 0 <= ctr["lr2rmats.align.rescue_placed"] <= \
+        ctr["lr2rmats.align.rescue_clips"]
     assert POLISH_COUNTERS <= set(ctr)
     assert 0 < ctr["lr2rmats.polish.winners"] <= \
         ctr["lr2rmats.polish.junctions"]
@@ -269,6 +282,44 @@ def test_span_helper():
     assert tot["t.call"][0] >= tot["t.inner"][0]
     reset_spans()
     assert span_records() == [] and counter_totals() == {}
+
+
+def test_rescue_span_and_counters_only_under_a_profiler(dataset, aligner,
+                                                       monkeypatch):
+    """The terminal-exon rescue's span and counters: nothing without a
+    profiler; under one, one span a batch under the build span and both
+    counters, the clips those the host version seeds."""
+    entry = _Align(dataset, aligner)
+    monkeypatch.setenv("LR2RMATS_SEED_WORKERS", "1")
+    reset_spans()
+    off = entry.run()
+    assert span_records() == [] and counter_totals() == {}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        on = entry.run()
+    assert on == off
+    recs = [r for r in span_records() if r["name"] in BUILD_SPANS]
+    assert len(recs) == 2
+    by_id = _by_id()
+    assert all(by_id[r["parent"]]["name"] == "lr2rmats.align.build"
+               for r in recs)
+    ctr = counter_totals()
+    assert RESCUE_COUNTERS <= set(ctr)
+    # the host version, one read at a time, seeds as many clips
+    seen = [0]
+    real = port_aligner.extract_minimizers
+
+    def counted(*a, **k):
+        seen[0] += 1
+        return real(*a, **k)
+    monkeypatch.setattr(port_aligner, "extract_minimizers", counted)
+    monkeypatch.setattr(port_batch, "get_lib", lambda: None)
+    reset_spans()
+    entry.run()
+    assert counter_totals() == {}
+    assert ctr["lr2rmats.align.rescue_clips"] == seen[0] > 0
+    assert ctr["lr2rmats.align.rescue_placed"] <= seen[0]
+    reset_spans()
 
 
 def test_profiler_turns_tracing_on(tmp_path):
